@@ -1,0 +1,487 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`mergenet_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the hand-written sm_90a kernels (one nvcc call), holds each
+against its plain PyTorch version at the shapes of the served frame,
+decodes a committed certification fixture on the card and on the CPU,
+then serves the full frame — PSPFPNet-r50 in bf16 on a 1024x2048 image
+with the committed trained weights, logits at 512x1024, then
+`decode_hierarchical` — through `e2e.build_e2e_infer`, counting kernel
+launches on that main path.  Every check raises; the exit code is 0 only
+when all phases pass.  Prints one line per phase, then the card, the
+kernels line, and last `{"ok": true, "device": {...}}`.
+
+Needs a CUDA device and the repository around it (the port and
+tests/fixtures/certification512); imports torch, numpy and the standard
+library besides the port.  Writes nothing outside mergenet_tpu_torch/_build/.
+"""
+
+import json
+import os
+import signal
+import statistics
+import subprocess
+import sys
+import time
+
+T0 = time.perf_counter()
+LIMIT_S = 600  # wall-clock guard for the whole run
+HERE = os.path.dirname(os.path.abspath(__file__))
+FIX = os.path.join(HERE, "tests", "fixtures", "certification512")
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the non-tensor
+# 32-bit vector rate, the ceiling of the kernels' integer/float work
+HBM_BYTES_PER_S = 3.35e12
+VECTOR_OPS_PER_S = 67e12
+
+# decode-phase gate: CUDA's log/exp may round one ulp away from the
+# CPU's, so the card's decode may differ from the CPU's in rare near-tie
+# merges; the integer kernels themselves are held bit-exact in phase 3
+MIN_PIXEL_AGREEMENT = 0.999
+MAX_INSTANCE_DIFF = 1
+
+# frame-phase gate on the bf16 net against its float32 forward (no TF32)
+# on the same card: bf16 keeps 8 mantissa bits, and the error grows
+# through ResNet-50's 53 convs
+BF16_MAX_ABS = 1.0
+BF16_ARGMAX_AGREEMENT = 0.99
+
+
+def phase(name):
+    elapsed = time.perf_counter() - T0
+    if elapsed > LIMIT_S:
+        raise TimeoutError("chip_smoke passed its %d s limit" % LIMIT_S)
+    print("[%8.2f s] %s" % (elapsed, name), flush=True)
+
+
+def _on_alarm(signum, frame):
+    raise TimeoutError("chip_smoke passed its %d s limit" % LIMIT_S)
+
+
+def time_ms(torch, fn, iters=20, warmup=3):
+    """Mean ms per call over `iters` calls, CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters=20, reps=3):
+    """Device ms per call: `iters` calls captured in one CUDA graph and
+    replayed `reps` times, so host launch overhead is excluded."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def median_ms(torch, fn, reps=5):
+    """Median wall ms of `reps` synchronised calls (after one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def bound(nbytes, ops):
+    """(least ms for the work, which of bytes/operations bounds it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / VECTOR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def agreement(a, b):
+    """(fraction of pixels in matched instances, exact) for two label
+    grids compared up to renaming: instances are matched one to one
+    greedily by overlap; exact means the labelings are the same
+    partition."""
+    import numpy as np
+    a = np.asarray(a).ravel().astype(np.int64)
+    b = np.asarray(b).ravel().astype(np.int64)
+    K = int(b.max()) + 1
+    u, cnt = np.unique(a * K + b, return_counts=True)
+    used_a, used_b, agree = set(), set(), 0
+    for k in np.argsort(-cnt, kind="stable"):
+        i, j = divmod(int(u[k]), K)
+        if i not in used_a and j not in used_b:
+            used_a.add(i)
+            used_b.add(j)
+            agree += int(cnt[k])
+    exact = len(u) == len(np.unique(a)) == len(np.unique(b))
+    return agree / a.size, bool(exact)
+
+
+def check_decode(tag, mask, ref, names=("card", "cpu")):
+    """Gate a decoded mask against a reference decode (up to renaming)."""
+    frac, exact = agreement(mask, ref)
+    n, n_ref = int(mask.max()), int(ref.max())
+    differ = int(round((1.0 - frac) * mask.size))
+    print("  %s: exact=%s pixels_differing=%d agreement=%.6f "
+          "instances %s=%d %s=%d" % (tag, exact, differ, frac, names[0], n,
+                                     names[1], n_ref), flush=True)
+    if frac < MIN_PIXEL_AGREEMENT or abs(n - n_ref) > MAX_INSTANCE_DIFF:
+        raise AssertionError("%s: %s decode disagrees with the %s one "
+                             "(agreement %.6f, instances %d vs %d)"
+                             % (tag, names[0], names[1], frac, n, n_ref))
+    return {"exact": exact, "pixels_differing": differ, "agreement": frac,
+            "instances": n, "instances_ref": n_ref}
+
+
+def main():
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from mergenet_tpu_torch import e2e, io
+    from mergenet_tpu_torch.convert import load_flax_weights
+    from mergenet_tpu_torch.decoder import device as D
+    from mergenet_tpu_torch.models import PSPFPNet, logits_at
+    from mergenet_tpu_torch.ops import _build, absorb, floodscan, tgather
+
+    signal.signal(signal.SIGALRM, _on_alarm)
+    signal.alarm(LIMIT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = torch.device("cuda")
+
+    # ---- 1. card ----
+    phase("card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    print("  nvidia-smi: %s | torch %s CUDA %s | python %s"
+          % (smi, torch.__version__, torch.version.cuda,
+             sys.version.split()[0]), flush=True)
+
+    # ---- 2. build ----
+    phase("build")
+    stale = _build.library_path()
+    if os.path.exists(stale):  # measure the real build every run
+        os.unlink(stale)
+    _build.library()
+    print("  nvcc: %d sources in one call, %.2f s -> %s"
+          % (len(_build.sources()), _build.build_seconds,
+             os.path.relpath(_build.library_path(), HERE)), flush=True)
+
+    # ---- 3. kernels against their plain versions, at the slice's shapes --
+    phase("kernels vs plain versions")
+    offsets = io.load_offsets(FIX)
+    cp, sp = io.load_probs(FIX, 0)
+    num_classes = cp.shape[-1]
+    O = len(offsets)
+    cp_d = torch.from_numpy(cp).to(cuda)
+    sp_d = torch.from_numpy(sp).to(cuda)
+    omf = float(np.float32(1.0))
+    bias = float(np.float32(0.03))
+    cls_lp_pix, log_odds = D._log_domain(cp_d, sp_d, 0.0)
+    argmax_pix = torch.argmax(cls_lp_pix, dim=-1)
+    H, W = argmax_pix.shape
+    N = H * W
+    ccl = 3
+    h_links, v_links = D._flood_links(argmax_pix, log_odds, offsets, "sum",
+                                      omf, bias, 2.0)
+    h_S, s = h_links[0].contiguous(), h_links[1]
+    v_S, t = v_links[0].contiguous(), v_links[1]
+    results = {}
+
+    def measure(kernel, plain, library=None):
+        """Device ms per call from CUDA-graph replay (host launch
+        overhead excluded) for the kernel, its plain version and the
+        library call, plus the kernel's eager per-call ms."""
+        return dict(ms=graph_ms(torch, kernel),
+                    call_ms=time_ms(torch, kernel),
+                    plain_ms=graph_ms(torch, plain, iters=5),
+                    library_ms=(None if library is None
+                                else graph_ms(torch, library)))
+
+    k = floodscan.flood_scan(h_S, v_S, s, t, ccl)
+    p = floodscan.flood_scan_plain(h_S, v_S, s, t, ccl)
+    torch.cuda.synchronize()
+    b_ms, b_by = bound(2 * N + 4 * N, 2 * 4 * ccl * N)
+    results["floodscan"] = dict(
+        equal=bool(torch.equal(k, p)),
+        max_abs_err=float((k - p).abs().max()),
+        bound_ms=b_ms, bound_by=b_by,
+        shape="(%d, %d) s=%d t=%d ccl=%d" % (H, W, s, t, ccl),
+        **measure(lambda: floodscan.flood_scan(h_S, v_S, s, t, ccl),
+                  lambda: floodscan.flood_scan_plain(h_S, v_S, s, t, ccl)))
+
+    label = D._flood_fill(argmax_pix, log_odds, offsets, "sum", omf, bias,
+                          ccl, 2.0)
+    M = 65536
+    comp2d, cls_lp, size, frozen, _, runs = D._densify_stats(
+        label, cls_lp_pix, M, return_runs=True)
+    argcls = torch.argmax(cls_lp, dim=1).to(torch.int32)
+    packed = ((torch.clamp_max(size, (1 << 26) - 1) << 5) | (argcls << 1)
+              | frozen.to(torch.int32))
+    packed_own = D._run_apply(packed, runs[1], comp2d, runs).contiguous()
+    comp2d = comp2d.contiguous()
+    kp, kq = absorb.absorb_best_edges(comp2d, packed_own, log_odds, offsets,
+                                      1.0, 64)
+    pp, pq = absorb.absorb_plain(comp2d, packed_own, log_odds, offsets,
+                                 1.0, 64)
+    torch.cuda.synchronize()
+    b_ms, b_by = bound((4 + 4 + 4 * O + 4 + 4) * N, 2 * O * 24 * N)
+    results["absorb"] = dict(
+        equal=bool(torch.equal(kp, pp) and torch.equal(kq, pq)),
+        max_abs_err=max(float((kp - pp).abs().max()),
+                        float((kq - pq).abs().max())),
+        bound_ms=b_ms, bound_by=b_by,
+        shape="(%d, %d) O=%d theta=1.0 cap=64" % (H, W, O),
+        **measure(lambda: absorb.absorb_best_edges(
+            comp2d, packed_own, log_odds, offsets, 1.0, 64),
+            lambda: absorb.absorb_plain(comp2d, packed_own, log_odds,
+                                        offsets, 1.0, 64)))
+
+    rng = np.random.default_rng(0)
+    tg = {}
+    for m in (16384, 65536, 131072):
+        table = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, m)
+                                 .astype(np.int32)).to(cuda)
+        idx = torch.from_numpy(rng.integers(-m - 4096, m + 4096, N)
+                               .astype(np.int32)).to(cuda)
+        kg = tgather.table_gather(table, idx)
+        pg = tgather.table_gather_plain(table, idx)
+        torch.cuda.synchronize()
+        idx_c = torch.where(idx < 0, idx + m, idx).clamp(0, m - 1).long()
+        b_ms, b_by = bound(4 * m + 8 * N, 4 * N)
+        tg[m] = dict(
+            equal=bool(torch.equal(kg, pg)),
+            max_abs_err=float((kg.long() - pg.long()).abs().max()),
+            bound_ms=b_ms, bound_by=b_by,
+            **measure(lambda: tgather.table_gather(table, idx),
+                      lambda: tgather.table_gather_plain(table, idx),
+                      lambda: torch.take(table, idx_c)))
+    results["tgather"] = dict(tg[65536], shape="M=65536 N=%d" % N,
+                              sizes={str(m): v for m, v in tg.items()})
+    for name, r in results.items():
+        print("  %s %s: equal=%s max_abs_err=%g kernel %.4f ms (eager "
+              "call %.4f ms), plain %.4f ms, library %s, bound %.4f ms "
+              "(%s)" % (name, r["shape"], r["equal"], r["max_abs_err"],
+                        r["ms"], r["call_ms"], r["plain_ms"],
+                        "%.4f ms" % r["library_ms"]
+                        if r["library_ms"] is not None else "none",
+                        r["bound_ms"], r["bound_by"]), flush=True)
+    for m, r in tg.items():
+        print("  tgather M=%d: equal=%s kernel %.4f ms plain %.4f ms "
+              "take %.4f ms" % (m, r["equal"], r["ms"], r["plain_ms"],
+                                r["library_ms"]), flush=True)
+        if not r["equal"]:
+            raise AssertionError("tgather kernel != plain at M=%d" % m)
+    for name, r in results.items():
+        if not r["equal"]:
+            raise AssertionError("%s kernel != its plain version" % name)
+
+    # ---- 4. decode: card vs CPU on fixture 0 ----
+    phase("decode fixture 0: card vs cpu")
+    kw = dict(object_merge_factor=1.0, merge_logprob_bias=0.03,
+              relabel=True, return_stats=True)
+    _build.reset_launches()
+    t = time.perf_counter()
+    m_card, c_card, st_card = D.decode_hierarchical(cp_d, sp_d, num_classes,
+                                                    offsets, **kw)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t) * 1e3
+    m_card2, c_card2, _ = D.decode_hierarchical(cp_d, sp_d, num_classes,
+                                                offsets, **kw)
+    if not (torch.equal(m_card, m_card2) and torch.equal(c_card, c_card2)):
+        raise AssertionError("two card decodes of one input differ")
+    m_cpu, _, st_cpu = D.decode_hierarchical(cp, sp, num_classes, offsets,
+                                             device="cpu", **kw)
+    print("  card decode %.1f ms (first call); stats card %s cpu %s; "
+          "deterministic over 2 runs" % (
+              first_ms, {k: int(v) for k, v in st_card.items()},
+              {k: int(v) for k, v in st_cpu.items()}), flush=True)
+    decode_check = check_decode("default", m_card.cpu().numpy(),
+                                m_cpu.numpy())
+    decode_launches = dict(_build.LAUNCHES)
+
+    phase("decode fixture 0, run-budget overflow branch: card vs cpu")
+    saved = D.RUN_SLOTS
+    D.RUN_SLOTS = 1024  # the fixture has ~10k column runs
+    try:
+        _build.reset_launches()
+        mo_card, _, _ = D.decode_hierarchical(cp_d, sp_d, num_classes,
+                                              offsets, **kw)
+        torch.cuda.synchronize()
+        overflow_launches = dict(_build.LAUNCHES)
+        mo_cpu, _, _ = D.decode_hierarchical(cp, sp, num_classes, offsets,
+                                             device="cpu", **kw)
+    finally:
+        D.RUN_SLOTS = saved
+    overflow_check = check_decode("overflow", mo_card.cpu().numpy(),
+                                  mo_cpu.numpy())
+    print("  launches: default %s, overflow %s"
+          % (decode_launches, overflow_launches), flush=True)
+    if overflow_launches.get("tgather", 0) < 1:
+        raise AssertionError("the overflow decode launched no tgather")
+
+    # ---- 5. the served frame ----
+    phase("frame: load weights, f32 vs bf16 net")
+    params, batch_stats = io.load_bench_checkpoint(
+        os.path.join(FIX, "bench_ckpt.npz"))
+    num_outputs = num_classes + O
+    net32 = load_flax_weights(PSPFPNet(num_outputs), params, batch_stats)
+    img = io.read_png_rgb(os.path.join(FIX, "bench_img.png"))
+    up = torch.nn.functional.interpolate(
+        torch.from_numpy(img).permute(2, 0, 1)[None].float(),
+        size=(1024, 2048), mode="bilinear", align_corners=False)
+    img_full = up.round().clamp(0, 255).to(torch.uint8).permute(
+        0, 2, 3, 1).contiguous().to(cuda)  # (1, 1024, 2048, 3)
+    DH, DW = 512, 1024
+    net32 = net32.to(cuda).eval()
+    x32 = img_full.float() / 256.0
+    with torch.no_grad():
+        ref = logits_at(net32, x32, (DH, DW))
+    del net32
+    net16 = load_flax_weights(PSPFPNet(num_outputs).to(torch.bfloat16),
+                              params, batch_stats)
+    # the user entry point; it moves net16 to the card in bf16
+    infer = e2e.build_e2e_infer(net16, num_classes, offsets,
+                                decode_size=(DH, DW), dtype=torch.bfloat16)
+    x16 = x32.to(torch.bfloat16)
+    with torch.no_grad():
+        lg16 = logits_at(net16, x16, (DH, DW))
+    err = float((lg16 - ref).abs().max())
+    agree = float((lg16[..., :num_classes].argmax(-1)
+                   == ref[..., :num_classes].argmax(-1)).float().mean())
+    print("  bf16 vs f32 logits (1, %d, %d, %d): max_abs_err %.4f "
+          "(limit %.2f), class argmax agreement %.5f (limit %.2f)"
+          % (DH, DW, num_outputs, err, BF16_MAX_ABS, agree,
+             BF16_ARGMAX_AGREEMENT), flush=True)
+    if not (err <= BF16_MAX_ABS and agree >= BF16_ARGMAX_AGREEMENT):
+        raise AssertionError("bf16 net disagrees with its f32 forward")
+
+    phase("frame: main path (served frames, launches counted)")
+    _build.reset_launches()
+    masks, classes = infer(img_full)
+    D.RUN_SLOTS = 1024  # a frame whose label grid overflows the run budget
+    try:
+        masks_o, classes_o = infer(img_full)
+    finally:
+        D.RUN_SLOTS = saved
+    torch.cuda.synchronize()
+    main_launches = dict(_build.LAUNCHES)
+    print("  launches on the main path: %s" % main_launches, flush=True)
+    for name in ("floodscan", "absorb", "tgather"):
+        if main_launches.get(name, 0) < 1:
+            raise AssertionError("main path launched no %s" % name)
+    mask = masks[0]
+    K = int((classes[0] >= 0).sum())
+    ids = torch.unique(mask).cpu().numpy()
+    if (tuple(mask.shape) != (1024, 2048) or mask.dtype != torch.int32
+            or K < 1 or not set(ids.tolist()) <= set(range(K + 1))
+            or not set(range(1, K + 1)) <= set(ids.tolist())
+            or int((classes[0][:K] < 1).sum()) != 0):
+        raise AssertionError("malformed frame output: shape %s, %d "
+                             "instances, ids %s" % (tuple(mask.shape), K,
+                                                    ids[:20]))
+    with torch.no_grad():
+        lg = logits_at(net16, x16, (DH, DW))[0]
+    m_frame_cpu, _ = D.decode_hierarchical(
+        lg[..., :num_classes].cpu(), lg[..., num_classes:].cpu(),
+        num_classes, offsets, object_merge_factor=1.0,
+        merge_logprob_bias=0.03, relabel=True, from_logits=True,
+        device="cpu")
+    m_frame_card, _ = D.decode_hierarchical(
+        lg[..., :num_classes], lg[..., num_classes:], num_classes, offsets,
+        object_merge_factor=1.0, merge_logprob_bias=0.03, relabel=True,
+        from_logits=True)
+    frame_check = check_decode("frame", m_frame_card.cpu().numpy(),
+                               m_frame_cpu.numpy())
+    frame_overflow = check_decode("frame, overflow branch vs default",
+                                  masks_o[0].cpu().numpy(),
+                                  masks[0].cpu().numpy(),
+                                  names=("overflow", "default"))
+
+    phase("frame: timing (median of 5)")
+    net_ms = median_ms(torch, lambda: logits_at(net16, x16, (DH, DW)))
+    dec_ms = median_ms(torch, lambda: D.decode_hierarchical(
+        lg[..., :num_classes], lg[..., num_classes:], num_classes, offsets,
+        object_merge_factor=1.0, merge_logprob_bias=0.03, relabel=True,
+        from_logits=True))
+    frame_ms = median_ms(torch, lambda: infer(img_full))
+    print("  frame 1024x2048 -> 512x1024 decode: %d instances; net %.2f ms, "
+          "decode %.2f ms, frame %.2f ms (bf16, %s)"
+          % (K, net_ms, dec_ms, frame_ms, smi), flush=True)
+
+    # ---- 6. kernels line and device line ----
+    phase("done")
+    sources = {"floodscan": "floodscan.cu", "absorb": "absorb.cu",
+               "tgather": "tgather.cu"}
+    replaces = {"floodscan": "mergenet_tpu/ops/pallas/floodscan.py:105",
+                "absorb": "mergenet_tpu/ops/pallas/absorb.py:153",
+                "tgather": "mergenet_tpu/ops/pallas/tgather.py:83"}
+    kernels = []
+    for name in ("floodscan", "absorb", "tgather"):
+        r = results[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mergenet_tpu_torch/csrc/" + sources[name],
+            "replaces": replaces[name],
+            "launches": int(main_launches.get(name, 0)),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "call_ms": r["call_ms"], "equal": r["equal"],
+            "shape": r["shape"],
+            "launches_decode_phase": int(decode_launches.get(name, 0)),
+            "launches_overflow_decode": int(overflow_launches.get(name, 0)),
+        })
+    summary = {"build_s": _build.build_seconds, "net_ms": net_ms,
+               "decode_ms": dec_ms, "frame_ms": frame_ms, "instances": K,
+               "decode_check": decode_check,
+               "overflow_check": overflow_check, "frame_check": frame_check,
+               "frame_overflow_check": frame_overflow,
+               "bf16_max_abs_err": err, "bf16_argmax_agreement": agree,
+               "tgather_sizes": results["tgather"]["sizes"],
+               "total_s": time.perf_counter() - T0}
+    print("summary " + json.dumps(summary), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    signal.alarm(0)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

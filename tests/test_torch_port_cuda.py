@@ -1,0 +1,82 @@
+"""Card-only tests of the port: each hand-written kernel against its
+plain PyTorch version, and the decode on the card against the CPU's.
+They skip without a GPU.  This file imports no JAX, so it also runs on
+the GPU machine, which has none:
+
+    MERGENET_TPU_TESTS=1 python -m pytest tests/test_torch_port_cuda.py -m cuda
+
+(MERGENET_TPU_TESTS=1 keeps tests/conftest.py from importing JAX.)
+Kernels: bit-equal.  Decode: the same partition as the CPU's up to
+renaming; CUDA's log/exp may round one ulp away from the CPU's, which
+these fixtures do not turn into a different merge."""
+
+import numpy as np
+import pytest
+import torch
+
+from mergenet_tpu_torch.decoder.device import decode_hierarchical
+from mergenet_tpu_torch.io import load_offsets, load_probs
+from mergenet_tpu_torch.ops import _build, absorb, floodscan, tgather
+from torch_port_helpers import (FIX512, SERVE_KW, assert_same_partition,
+                                cuda_device)  # noqa: F401
+
+OFFSETS = ((1, 0), (0, 2), (-2, -1), (2, -4), (5, 5), (-9, 7), (-9, -16),
+           (28, -10), (9, 48), (-80, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,s,t", [(61, 130, 2, 1), (512, 1024, 2, 1),
+                                     (33, 7, 3, 5)])
+def test_floodscan_kernel_matches_plain(cuda_device, H, W, s, t):
+    rng = np.random.default_rng(H + W)
+    h = torch.from_numpy(rng.random((H, W)) < 0.9).to(cuda_device)
+    v = torch.from_numpy(rng.random((H, W)) < 0.9).to(cuda_device)
+    for hh, vv in ((h, v), (h, None), (None, v)):
+        assert torch.equal(floodscan.flood_scan(hh, vv, s, t, 3),
+                           floodscan.flood_scan_plain(hh, vv, s, t, 3))
+
+
+@pytest.mark.cuda
+def test_absorb_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(1)
+    H, W = 77, 301
+    comp = rng.integers(0, 60, (H, W)).astype(np.int32)
+    size = rng.integers(1, 120, (H, W)).astype(np.int32)
+    argc = rng.integers(0, 4, (H, W)).astype(np.int32)
+    froz = (rng.random((H, W)) < 0.05).astype(np.int32)
+    packed = (size << 5) | (argc << 1) | froz
+    lo = (np.round(rng.standard_normal((len(OFFSETS), H, W)) * 4) / 2) \
+        .astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (comp, packed, lo)]
+    before = _build.LAUNCHES["absorb"]
+    kp, kq = absorb.absorb_best_edges(*args, OFFSETS, 1.0, 64)
+    pp, pq = absorb.absorb_plain(*args, OFFSETS, 1.0, 64)
+    assert _build.LAUNCHES["absorb"] == before + 1
+    assert torch.equal(kp, pp) and torch.equal(kq, pq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 1000, 131072, 1 << 20])
+def test_tgather_kernel_matches_plain(cuda_device, m):
+    rng = np.random.default_rng(m)
+    table = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, m)
+                             .astype(np.int32)).to(cuda_device)
+    idx = rng.integers(-m - 99, m + 99, (37, 1001)).astype(np.int32)
+    idx.flat[:2] = [-2 ** 31, 2 ** 31 - 1]
+    idx = torch.from_numpy(idx).to(cuda_device)
+    assert torch.equal(tgather.table_gather(table, idx),
+                       tgather.table_gather_plain(table, idx))
+
+
+@pytest.mark.cuda
+def test_decode_on_card_matches_cpu(cuda_device):
+    cp, sp = load_probs(FIX512, 1)
+    offsets = load_offsets(FIX512)
+    kw = dict(SERVE_KW, relabel=True, return_stats=True)
+    gm, gc, gs = decode_hierarchical(cp, sp, 9, offsets, **kw)
+    assert gm.device.type == "cuda"
+    cm, cc, cs = decode_hierarchical(cp, sp, 9, offsets, device="cpu", **kw)
+    assert_same_partition(gm.cpu().numpy(), cm.numpy(), gc.cpu().numpy(),
+                          cc.numpy())
+    assert {k: int(v) for k, v in gs.items()} == \
+        {k: int(v) for k, v in cs.items()}

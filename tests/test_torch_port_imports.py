@@ -1,0 +1,62 @@
+"""The port runs where the GPU machine has no jax, flax, cv2 or PIL, and
+never imports the JAX package: every module of `mergenet_tpu_torch` and
+`chip_smoke.py` import, and a small decode and forward run, in a
+subprocess where those modules are blocked."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+BLOCKED = ("jax", "jaxlib", "flax", "cv2", "PIL", "mergenet_tpu")
+
+SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    for name in %r:
+        sys.modules[name] = None  # any import of it, or below it, fails
+    import numpy as np
+    import torch
+    import mergenet_tpu_torch
+    mods = [m.name for m in pkgutil.walk_packages(
+        mergenet_tpu_torch.__path__, "mergenet_tpu_torch.")]
+    for m in mods:
+        importlib.import_module(m)
+    import chip_smoke
+    from mergenet_tpu_torch.decoder.device import decode_hierarchical
+    from mergenet_tpu_torch.models import PSPFPNet, logits_at
+    rng = np.random.default_rng(0)
+    cp = rng.random((32, 64, 3)).astype(np.float32)
+    sp = rng.random((32, 64, 2)).astype(np.float32)
+    mask, cls = decode_hierarchical(cp, sp, 3, ((1, 0), (0, 2)),
+                                    relabel=True, device="cpu")
+    logits_at(PSPFPNet(5).eval(), torch.rand(1, 64, 64, 3), (16, 16))
+    leaked = sorted(n for n in sys.modules if n.split(".")[0] in %r
+                    and sys.modules[n] is not None)
+    assert not leaked, leaked
+    print("IMPORTED", len(mods))
+""")
+
+
+def test_port_imports_without_jax_flax_cv2_pil():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT % (BLOCKED, BLOCKED)], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split("IMPORTED")[1]) >= 12
+
+
+def test_no_reference_imports_in_port_sources():
+    """Static check, which also covers imports inside functions that the
+    subprocess run does not reach."""
+    pat = re.compile(r"^\s*(import|from)\s+(%s)\b" % "|".join(
+        re.escape(b) for b in BLOCKED), re.M)
+    files = list((ROOT / "mergenet_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) >= 14
+    for f in files:
+        hits = pat.findall(f.read_text())
+        assert not hits, (f, hits)
