@@ -4,14 +4,25 @@
     python3 chip_smoke.py
 
 Builds the hand-written sm_90a kernels (one nvcc call), holds each
-against its plain PyTorch version at the shapes of the served frame,
+against its plain PyTorch version at the shapes its paths give it,
 decodes a committed certification fixture on the card and on the CPU,
-then serves the full frame — PSPFPNet-r50 in bf16 on a 1024x2048 image
-with the committed trained weights, logits at 512x1024, then
-`decode_hierarchical` — through `e2e.build_e2e_infer`, counting kernel
-launches on that main path.  Every check raises; the exit code is 0 only
-when all phases pass.  Prints one line per phase, then the card, the
-kernels line, and last `{"ok": true, "device": {...}}`.
+then drives each path of the port through its user entry point, with
+the launch counts set to 0 just before and read just after:
+
+- the served frame: PSPFPNet-r50 in bf16 on a 1024x2048 image with the
+  committed trained weights, logits at 512x1024, `decode_hierarchical`
+  (`e2e.build_e2e_infer`; floodscan, absorb, tgather);
+- the exact-mode decode of the fixture (`run_segmentation_device`) and
+  the served frame in exact mode (`build_e2e_infer(decode_mode="exact")`;
+  tgather);
+- the serving pipeline with its overflow fallback
+  (`serving.build_serving_pipeline`) on a batch of two served frames;
+- the gather bench (`python -m mergenet_tpu_torch.bench_pallas_gather`;
+  pgather).
+
+Every check raises; the exit code is 0 only when all phases pass.
+Prints one line per phase, then the card, the kernels line, and last
+`{"ok": true, "device": {...}}`.
 
 Needs a CUDA device and the repository around it (the port and
 tests/fixtures/certification512); imports torch, numpy and the standard
@@ -21,8 +32,6 @@ library besides the port.  Writes nothing outside mergenet_tpu_torch/_build/.
 import json
 import os
 import signal
-import statistics
-import subprocess
 import sys
 import time
 
@@ -58,59 +67,6 @@ def phase(name):
 
 def _on_alarm(signum, frame):
     raise TimeoutError("chip_smoke passed its %d s limit" % LIMIT_S)
-
-
-def time_ms(torch, fn, iters=20, warmup=3):
-    """Mean ms per call over `iters` calls, CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(torch, fn, iters=20, reps=3):
-    """Device ms per call: `iters` calls captured in one CUDA graph and
-    replayed `reps` times, so host launch overhead is excluded."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (reps * iters)
-
-
-def median_ms(torch, fn, reps=5):
-    """Median wall ms of `reps` synchronised calls (after one warm-up)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-    return statistics.median(times)
 
 
 def bound(nbytes, ops):
@@ -167,11 +123,13 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from mergenet_tpu_torch import e2e, io
+    from mergenet_tpu_torch import bench_pallas_gather, e2e, io, serving
+    from mergenet_tpu_torch.timing import card, eager_ms, graph_ms, median_ms
     from mergenet_tpu_torch.convert import load_flax_weights
     from mergenet_tpu_torch.decoder import device as D
-    from mergenet_tpu_torch.models import PSPFPNet, logits_at
-    from mergenet_tpu_torch.ops import _build, absorb, floodscan, tgather
+    from mergenet_tpu_torch.models import PSPFPNet, logits_at, probs_at
+    from mergenet_tpu_torch.ops import (_build, absorb, floodscan, pgather,
+                                        tgather)
 
     signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(LIMIT_S)
@@ -181,10 +139,7 @@ def main():
 
     # ---- 1. card ----
     phase("card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card()
     kind = torch.cuda.get_device_name(0)
     print("  nvidia-smi: %s | torch %s CUDA %s | python %s"
           % (smi, torch.__version__, torch.version.cuda,
@@ -225,11 +180,11 @@ def main():
         """Device ms per call from CUDA-graph replay (host launch
         overhead excluded) for the kernel, its plain version and the
         library call, plus the kernel's eager per-call ms."""
-        return dict(ms=graph_ms(torch, kernel),
-                    call_ms=time_ms(torch, kernel),
-                    plain_ms=graph_ms(torch, plain, iters=5),
+        return dict(ms=graph_ms(kernel),
+                    call_ms=eager_ms(kernel),
+                    plain_ms=graph_ms(plain, iters=5),
                     library_ms=(None if library is None
-                                else graph_ms(torch, library)))
+                                else graph_ms(library)))
 
     k = floodscan.flood_scan(h_S, v_S, s, t, ccl)
     p = floodscan.flood_scan_plain(h_S, v_S, s, t, ccl)
@@ -272,7 +227,7 @@ def main():
 
     rng = np.random.default_rng(0)
     tg = {}
-    for m in (16384, 65536, 131072):
+    for m in (16384, 65536, 131072, N):  # N: the exact path's tables
         table = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, m)
                                  .astype(np.int32)).to(cuda)
         idx = torch.from_numpy(rng.integers(-m - 4096, m + 4096, N)
@@ -291,6 +246,35 @@ def main():
                       lambda: torch.take(table, idx_c)))
     results["tgather"] = dict(tg[65536], shape="M=65536 N=%d" % N,
                               sizes={str(m): v for m, v in tg.items()})
+
+    pg = {}
+    for m in bench_pallas_gather.SIZES:
+        table = torch.from_numpy(rng.integers(0, 2 ** 30, m)
+                                 .astype(np.int32)).to(cuda)
+        idx = torch.from_numpy(rng.integers(0, m, N)
+                               .astype(np.int32)).to(cuda)
+        kg = pgather.pgather(table, idx)
+        pgp = pgather.pgather_plain(table, idx)
+        torch.cuda.synchronize()
+        b_ms, b_by = bound(4 * m + 8 * N, N)
+        pg[m] = dict(
+            equal=bool(torch.equal(kg, pgp)),
+            max_abs_err=float((kg.long() - pgp.long()).abs().max()),
+            bound_ms=b_ms, bound_by=b_by,
+            **measure(lambda: pgather.pgather(table, idx),
+                      lambda: pgather.pgather_plain(table, idx),
+                      lambda: table[idx]))
+    m = 65536  # out-of-range indices clamp in the kernel and the plain
+    table = torch.from_numpy(rng.integers(0, 2 ** 30, m)
+                             .astype(np.int32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(-2 * m, 2 * m, N)
+                           .astype(np.int32)).to(cuda)
+    idx[:2] = torch.tensor([-2 ** 31, 2 ** 31 - 1], dtype=torch.int32)
+    pg_oob = bool(torch.equal(pgather.pgather(table, idx),
+                              pgather.pgather_plain(table, idx)))
+    results["pgather"] = dict(pg[65536], shape="M=65536 N=%d (chunked)" % N,
+                              sizes={str(m): v for m, v in pg.items()},
+                              out_of_range_equal=pg_oob)
     for name, r in results.items():
         print("  %s %s: equal=%s max_abs_err=%g kernel %.4f ms (eager "
               "call %.4f ms), plain %.4f ms, library %s, bound %.4f ms "
@@ -305,6 +289,18 @@ def main():
                                 r["library_ms"]), flush=True)
         if not r["equal"]:
             raise AssertionError("tgather kernel != plain at M=%d" % m)
+    for m, r in pg.items():
+        print("  pgather M=%d: equal=%s kernel %.4f ms (eager call %.4f "
+              "ms) plain %.4f ms table[idx] %.4f ms bound %.4f ms"
+              % (m, r["equal"], r["ms"], r["call_ms"], r["plain_ms"],
+                 r["library_ms"], r["bound_ms"]), flush=True)
+        if not r["equal"]:
+            raise AssertionError("pgather kernel != plain at M=%d" % m)
+    print("  pgather out-of-range indices (clamped): equal=%s" % pg_oob,
+          flush=True)
+    if not pg_oob:
+        raise AssertionError("pgather kernel != plain on out-of-range "
+                             "indices")
     for name, r in results.items():
         if not r["equal"]:
             raise AssertionError("%s kernel != its plain version" % name)
@@ -432,36 +428,165 @@ def main():
                                   names=("overflow", "default"))
 
     phase("frame: timing (median of 5)")
-    net_ms = median_ms(torch, lambda: logits_at(net16, x16, (DH, DW)))
-    dec_ms = median_ms(torch, lambda: D.decode_hierarchical(
+    net_ms = median_ms(lambda: logits_at(net16, x16, (DH, DW)))
+    dec_ms = median_ms(lambda: D.decode_hierarchical(
         lg[..., :num_classes], lg[..., num_classes:], num_classes, offsets,
         object_merge_factor=1.0, merge_logprob_bias=0.03, relabel=True,
         from_logits=True))
-    frame_ms = median_ms(torch, lambda: infer(img_full))
+    frame_ms = median_ms(lambda: infer(img_full))
     print("  frame 1024x2048 -> 512x1024 decode: %d instances; net %.2f ms, "
           "decode %.2f ms, frame %.2f ms (bf16, %s)"
           % (K, net_ms, dec_ms, frame_ms, smi), flush=True)
 
-    # ---- 6. kernels line and device line ----
+    paths = {"hier frame": main_launches}
+
+    def drive(name, fn, needs):
+        """Run one path with the launch counts set to 0 just before and
+        read just after; every kernel in `needs` must have launched."""
+        _build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        paths[name] = dict(_build.LAUNCHES)
+        print("  launches on the %s path: %s" % (name, paths[name]),
+              flush=True)
+        for k in needs:
+            if paths[name].get(k, 0) < 1:
+                raise AssertionError("the %s path launched no %s"
+                                     % (name, k))
+        return out
+
+    # ---- 6. exact mode ----
+    phase("exact decode fixture 0 (run_segmentation_device): card vs cpu")
+    cf, sf = np.moveaxis(cp, -1, 0), np.moveaxis(sp, -1, 0)
+    hyper = dict(object_merge_factor=1.0, merge_logprob_bias=0.03)
+    t = time.perf_counter()
+    me_card, ce_card, se_card = drive(
+        "exact decode", lambda: D.run_segmentation_device(
+            cf, sf, num_classes, offsets, mode="exact", return_stats=True,
+            **hyper), ("tgather",))
+    exact_first_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    me_cpu, ce_cpu, se_cpu = D.run_segmentation_device(
+        cf, sf, num_classes, offsets, mode="exact", return_stats=True,
+        device="cpu", **hyper)
+    exact_cpu_ms = (time.perf_counter() - t) * 1e3
+    print("  exact: classes card %s cpu %s; stats card %s cpu %s"
+          % (ce_card, ce_cpu, se_card, se_cpu), flush=True)
+    exact_check = check_decode("exact", me_card, me_cpu)
+    if se_card != se_cpu:
+        raise AssertionError("exact decode stats differ: card %s cpu %s"
+                             % (se_card, se_cpu))
+    exact_ms = median_ms(lambda: D.run_segmentation_device(
+        cf, sf, num_classes, offsets, mode="exact", **hyper), reps=3)
+    print("  exact decode of fixture 0 (512x1024): card %.1f ms (median "
+          "of 3; first call %.1f ms), cpu %.1f ms" % (
+              exact_ms, exact_first_ms, exact_cpu_ms), flush=True)
+
+    phase("exact frame (build_e2e_infer decode_mode='exact')")
+    infer_exact = e2e.build_e2e_infer(net16, num_classes, offsets,
+                                      decode_size=(DH, DW),
+                                      dtype=torch.bfloat16,
+                                      decode_mode="exact")
+    masks_e, classes_e = drive("exact frame", lambda: infer_exact(img_full),
+                               ("tgather",))
+    K_e = int((classes_e[0] >= 0).sum())
+    if (tuple(masks_e.shape) != (1, 1024, 2048) or K_e < 1
+            or int(masks_e.max()) != K_e):
+        raise AssertionError("malformed exact frame: shape %s, %d classes, "
+                             "max id %d" % (tuple(masks_e.shape), K_e,
+                                            int(masks_e.max())))
+    exact_frame_ms = median_ms(lambda: infer_exact(img_full), reps=3)
+    print("  exact frame 1024x2048: %d instances (hier frame %d); %.1f ms "
+          "(median of 3, bf16, %s)" % (K_e, K, exact_frame_ms, smi),
+          flush=True)
+
+    # ---- 7. serving pipeline with the overflow fallback ----
+    phase("serving: build_serving_pipeline(overflow_fallback=True), "
+          "2 frames")
+    img2 = io.read_png_rgb(os.path.join(FIX, "bench_img_1.png"))
+    up2 = torch.nn.functional.interpolate(
+        torch.from_numpy(img2).permute(2, 0, 1)[None].float(),
+        size=(1024, 2048), mode="bilinear", align_corners=False)
+    img2_full = up2.round().clamp(0, 255).to(torch.uint8).permute(
+        0, 2, 3, 1).to(cuda)
+    batch = torch.cat([img_full, img2_full]).float() / 256.0
+    serve = serving.build_serving_pipeline(
+        net16, num_classes, offsets, decode_size=(DH, DW),
+        dtype=torch.bfloat16, overflow_fallback=True)
+    tight = dict(max_components=4096, pair_components=1024,
+                 pair_slots=1024, edge_slots=16384)
+    serve_tight = serving.build_serving_pipeline(
+        net16, num_classes, offsets, decode_size=(DH, DW),
+        dtype=torch.bfloat16, hier_kwargs=tight, overflow_fallback=True)
+    sm, sc, sov = drive("serving", lambda: serve(batch),
+                        ("floodscan", "absorb"))
+    sov = sov.tolist()
+    if sov[0] != 0:
+        raise AssertionError("certified capacities overflowed on frame 0: "
+                             "%s" % sov)
+    if not torch.equal(sm[0], masks[0]):
+        raise AssertionError("served frame 0 != the e2e hier frame")
+    tm_, tc_, tov = drive("serving fallback", lambda: serve_tight(batch),
+                          ("floodscan", "absorb", "tgather"))
+    tov = tov.tolist()
+    if min(tov) < 1:
+        raise AssertionError("tight capacities did not overflow: %s" % tov)
+    fallback_equal = []
+    with torch.no_grad():
+        for b in range(2):
+            small = probs_at(net16, batch[b:b + 1].to(torch.bfloat16),
+                             (DH, DW))[0]
+            em, ecls = D.run_segmentation_device(
+                small[..., :num_classes].movedim(-1, 0),
+                small[..., num_classes:].movedim(-1, 0), num_classes,
+                offsets, mode="exact", **hyper)
+            full = e2e.upsample_nearest(torch.as_tensor(em, device=cuda),
+                                        (1024, 2048))
+            fallback_equal.append(
+                bool(torch.equal(tm_[b], full))
+                and tc_[b][:len(ecls)].tolist() == ecls
+                and bool((tc_[b][len(ecls):] == -1).all()))
+    print("  overflow counts: certified %s, tight %s; tight frames equal "
+          "to their exact decode upsampled: %s" % (sov, tov,
+                                                   fallback_equal),
+          flush=True)
+    if not all(fallback_equal):
+        raise AssertionError("a fallback frame differs from its exact "
+                             "decode")
+    serve_ms = median_ms(lambda: serve(batch), reps=3)
+    serve_tight_ms = median_ms(lambda: serve_tight(batch), reps=1)
+    print("  serve 2 frames: certified %.1f ms (median of 3), all-fallback "
+          "%.1f ms (bf16, %s)" % (serve_ms, serve_tight_ms, smi), flush=True)
+
+    # ---- 8. the gather bench ----
+    phase("gather bench (python -m mergenet_tpu_torch.bench_pallas_gather)")
+    bench_rows = drive("gather bench", bench_pallas_gather.main,
+                       ("pgather",))
+    if not all(r["correct"] for r in bench_rows):
+        raise AssertionError("gather bench: pgather != table[idx]")
+
+    # ---- 9. kernels line and device line ----
     phase("done")
     sources = {"floodscan": "floodscan.cu", "absorb": "absorb.cu",
-               "tgather": "tgather.cu"}
+               "tgather": "tgather.cu", "pgather": "pgather.cu"}
     replaces = {"floodscan": "mergenet_tpu/ops/pallas/floodscan.py:105",
                 "absorb": "mergenet_tpu/ops/pallas/absorb.py:153",
-                "tgather": "mergenet_tpu/ops/pallas/tgather.py:83"}
+                "tgather": "mergenet_tpu/ops/pallas/tgather.py:83",
+                "pgather": "scripts/bench_pallas_gather.py:38"}
     kernels = []
-    for name in ("floodscan", "absorb", "tgather"):
+    for name in ("floodscan", "absorb", "tgather", "pgather"):
         r = results[name]
+        by_path = {p: int(c.get(name, 0)) for p, c in paths.items()}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mergenet_tpu_torch/csrc/" + sources[name],
             "replaces": replaces[name],
-            "launches": int(main_launches.get(name, 0)),
+            "launches": sum(by_path.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "call_ms": r["call_ms"], "equal": r["equal"],
-            "shape": r["shape"],
+            "shape": r["shape"], "launches_by_path": by_path,
             "launches_decode_phase": int(decode_launches.get(name, 0)),
             "launches_overflow_decode": int(overflow_launches.get(name, 0)),
         })
@@ -472,6 +597,16 @@ def main():
                "frame_overflow_check": frame_overflow,
                "bf16_max_abs_err": err, "bf16_argmax_agreement": agree,
                "tgather_sizes": results["tgather"]["sizes"],
+               "pgather_sizes": results["pgather"]["sizes"],
+               "exact_check": exact_check, "exact_stats": se_card,
+               "exact_decode_ms": exact_ms,
+               "exact_decode_cpu_ms": exact_cpu_ms,
+               "exact_frame_ms": exact_frame_ms,
+               "exact_frame_instances": K_e,
+               "serve_overflow": sov, "serve_tight_overflow": tov,
+               "serve_2frames_ms": serve_ms,
+               "serve_2frames_fallback_ms": serve_tight_ms,
+               "gather_bench": bench_rows, "launches_by_path": paths,
                "total_s": time.perf_counter() - T0}
     print("summary " + json.dumps(summary), flush=True)
     print(smi, flush=True)

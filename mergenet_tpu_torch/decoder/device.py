@@ -1,17 +1,23 @@
-"""On-device hierarchical merge decode, ported to PyTorch
+"""On-device merge decoders, ported to PyTorch
 (`mergenet_tpu/decoder/device.py` is the reference).
 
 `decode_hierarchical` runs the reference's four stages — conservative
 flood fill, same-class absorption rounds, pair dedup, aggregated
-Boruvka pair rounds — with every `lax.cond` branch kept as a Python
-branch on a device scalar and every `while_loop` as a Python loop with
-the reference's cap, which raises instead of returning an unconverged
-result.  Layout at the public function is the reference's: (H, W, C)
-class maps, (H, W, O) sameness maps.
+Boruvka pair rounds.  The exact mode (`run_segmentation_device`) runs
+the rolls-only first round (`boruvka_rolls_round`), then annealed pair
+rounds with capacities measured on the host (`_pair_exact_finish`);
+`decode_on_device` runs Boruvka rounds over all (pixel, offset) edges.
+Every `lax.cond` branch is a Python branch on a device scalar and every
+`while_loop` a Python loop with the reference's cap, which raises
+instead of returning an unconverged result.  The reference's 2-key
+(lo, hi) sorts are stable sorts of one int64 key lo * P + hi (torch has
+no multi-key sort).  Layout at the public functions is the reference's:
+(H, W, C) class maps, (H, W, O) sameness maps.
 
 Kernels: the flood fill's scans (`ops/floodscan.py`), the absorption
-edge scan (`ops/absorb.py`) and the run-budget-overflow table gather
-(`ops/tgather.py`) launch hand-written CUDA kernels on CUDA tensors.
+edge scan (`ops/absorb.py`) and the table gather (`ops/tgather.py`:
+the run-budget-overflow branch, `decode_on_device`'s final lookup and
+`relabel_mask`) launch hand-written CUDA kernels on CUDA tensors.
 
 Arithmetic follows the reference's order so that the CPU result equals
 the reference's on the CPU: float running sums reproduce XLA's blocked
@@ -194,11 +200,25 @@ def _sort(keys, *payloads, dim=-1):
 
 # ------------------------------------------------------------ pre/flood
 
+def _log32(x):
+    """float32 log, correctly rounded (taken in float64): the same bits
+    on the CPU and the card, whose float32 logs differ by an ulp in
+    places — enough to flip near-tie singleton hooks of the exact mode's
+    rolls round."""
+    return torch.log(x.double()).float()
+
+
+def _log1p32(x):
+    """float32 log1p, correctly rounded like `_log32`."""
+    return torch.log1p(x.double()).float()
+
+
 def _log_domain(class_probs, sameness_probs, same_different_bias,
                 from_logits=False):
     """Clipped log class probs (H, W, C) and sameness log-odds, plane
     major (O, H, W).  With `from_logits` the inputs are raw logits and
-    the sigmoid -> clip -> log round trip is collapsed algebraically."""
+    the sigmoid -> clip -> log round trip is collapsed algebraically.
+    From probabilities, the logs are `_log32` / `_log1p32`."""
     dev = class_probs.device
     eps = torch.tensor(1.1920929e-07, dtype=F32, device=dev)
     if from_logits:
@@ -218,9 +238,9 @@ def _log_domain(class_probs, sameness_probs, same_different_bias,
     sp = torch.minimum(torch.maximum(
         sameness_probs.movedim(-1, 0).to(F32), eps), one_m)
     if same_different_bias:
-        logit = torch.log(sp) - torch.log1p(-sp) + same_different_bias
+        logit = _log32(sp) - _log1p32(-sp) + same_different_bias
         sp = torch.minimum(torch.maximum(torch.sigmoid(logit), eps), one_m)
-    return torch.log(cp), (torch.log(sp) - torch.log1p(-sp)).contiguous()
+    return _log32(cp), (_log32(sp) - _log1p32(-sp)).contiguous()
 
 
 def _contract(parent, two_cycle_break=True):
@@ -643,28 +663,40 @@ def _run_dedup(key, oml, first, dead, P, SENT, pair_slots, slots):
     return plo, phi, pair_oml, stats
 
 
+def _pair_keys(lo, hi, ext, P, SENT, packed):
+    """Pair keys lo * P + hi of the external edges, SENT elsewhere: int32
+    when `packed`, else int64 — torch has no multi-key sort, and the
+    stable sort of the int64 key is the reference's stable 2-key
+    (lo, hi) sort, its sentinel (M2, M2) packing to SENT."""
+    if not packed:
+        lo, hi = lo.to(torch.int64), hi.to(torch.int64)
+    return torch.where(ext, lo * P + hi, SENT)
+
+
 def _pair_phase(comp2d, cls_lp, size, frozen, log_odds, offsets, M2,
-                pair_slots, pair_rounds, den_mode, omf, bias,
+                pair_slots, pair_rounds, den_mode, omf, bias, packed=True,
                 edge_slots=None, dedup_block=None, dedup_slots=64,
                 froz2d=None, anneal_start=0.0, anneal_halvings=0):
-    """Pair dedup on packed int32 pair keys + aggregated Boruvka rounds.
-    With `dedup_block`: the column-major run dedup, or the sorted block
-    dedup when a row has more than `dedup_slots` live runs.  Without it:
-    one key sort over all edges that doubles as the stream compaction to
+    """Pair dedup + aggregated Boruvka rounds.  `packed` selects int32
+    pair keys (requires (M2+1)^2-1 <= 2^31-1), else the reference's
+    (lo, hi) 2-key sorts, here int64 keys.  With `dedup_block` (packed
+    only): the column-major run dedup, or the sorted block dedup when a
+    row has more than `dedup_slots` live runs.  Without it: one key sort
+    over all edges that doubles as the stream compaction to
     `edge_slots`, dropping whole pairs past the cut.  Returns
     (total_map (M2,), cls_lp, size, stats)."""
     P = M2 + 1
     SENT = P * P - 1
     if froz2d is None:
         froz2d = frozen[comp2d]
-    if dedup_block is None:
+    if not packed or dedup_block is None:
         plo, phi, pair_oml, stats = _mono_dedup(
             comp2d, froz2d, log_odds, offsets, P, SENT, pair_slots,
-            edge_slots)
+            edge_slots, packed)
         return _pair_rounds(plo, phi, pair_oml, stats, cls_lp, size,
                             frozen, M2, P, SENT, pair_slots, pair_rounds,
                             den_mode, omf, bias, anneal_start,
-                            anneal_halvings)
+                            anneal_halvings, packed)
     compT = comp2d.t()
     frozT = froz2d.t()
     keys = []
@@ -695,12 +727,13 @@ def _pair_phase(comp2d, cls_lp, size, frozen, log_odds, offsets, M2,
 
 
 def _mono_dedup(comp2d, froz2d, log_odds, offsets, P, SENT, pair_slots,
-                edge_slots):
+                edge_slots, packed=True):
     """One sort of all (pixel, offset) edge keys: internal edges carry the
     sentinel and sort to the tail, so slicing to K = edge_slots keeps
     every external edge when they fit; a pair whose run straddles the
     cut is dropped whole.  Per-pair sums are run-end differences of a
-    compensated running sum.  Returns (plo, phi, pair_oml, stats)."""
+    compensated running sum.  Keys are int32 when `packed`, else int64
+    (`_pair_keys`).  Returns (plo, phi, pair_oml, stats)."""
     dev = comp2d.device
     keys = []
     for di, dj in offsets:
@@ -709,7 +742,7 @@ def _mono_dedup(comp2d, froz2d, log_odds, offsets, P, SENT, pair_slots,
         ext = (c2 >= 0) & (c2 != comp2d) & ~froz2d & ~f2
         lo = torch.minimum(comp2d, c2)
         hi = torch.maximum(comp2d, c2)
-        keys.append(torch.where(ext, lo * P + hi, SENT).reshape(-1))
+        keys.append(_pair_keys(lo, hi, ext, P, SENT, packed).reshape(-1))
     key = torch.cat(keys)
     oml = log_odds.reshape(-1)  # plane-major == the per-offset concat
     E_all = oml.shape[0]
@@ -735,8 +768,8 @@ def _mono_dedup(comp2d, froz2d, log_odds, offsets, P, SENT, pair_slots,
     ord_s, pk_s, tot_s = _sort(ordkey, key_s, total)
     valid = ord_s[:pair_slots] < pair_slots - 1
     plo = torch.where(valid, torch.div(pk_s[:pair_slots], P,
-                                       rounding_mode="floor"), -1)
-    phi = torch.where(valid, pk_s[:pair_slots] % P, -1)
+                                       rounding_mode="floor"), -1).to(I32)
+    phi = torch.where(valid, pk_s[:pair_slots] % P, -1).to(I32)
     ctot = tot_s[:pair_slots]
     pair_oml = torch.where(
         valid, ctot - torch.cat([torch.zeros((1,), dtype=F32, device=dev),
@@ -751,10 +784,11 @@ def _mono_dedup(comp2d, froz2d, log_odds, offsets, P, SENT, pair_slots,
 
 def _pair_rounds(plo, phi, pair_oml, stats, cls_lp, size, frozen, M2, P,
                  SENT, pair_slots, pair_rounds, den_mode, omf, bias,
-                 anneal_start=0.0, anneal_halvings=0):
+                 anneal_start=0.0, anneal_halvings=0, packed=True):
     """Aggregated Boruvka rounds with up-size hooking over the unique
     pair arrays, until a round merges nothing (at most `pair_rounds`
-    rounds; reaching the cap unconverged raises)."""
+    rounds; reaching the cap unconverged raises).  Pair keys are int32
+    when `packed`, else int64 (the reference's 2-key sort)."""
     dev = plo.device
     ids2 = _arange(M2, dev)
     total_map = ids2
@@ -768,12 +802,12 @@ def _pair_rounds(plo, phi, pair_oml, stats, cls_lp, size, frozen, M2, P,
         live = ((plo >= 0) & (plo != phi)
                 & ~frozen[torch.clamp_min(plo, 0)]
                 & ~frozen[torch.clamp_min(phi, 0)])
-        k = torch.where(live, plo * P + phi, SENT)
+        k = _pair_keys(plo, phi, live, P, SENT, packed)
         k_s, o_s = _sort(k, poml)
         dead = k_s >= SENT
         lo_c = torch.clamp_max(torch.div(k_s, P, rounding_mode="floor"),
-                               M2 - 1)
-        hi_c = torch.clamp_max(k_s % P, M2 - 1)
+                               M2 - 1).to(I32)
+        hi_c = torch.clamp_max(k_s % P, M2 - 1).to(I32)
         f_ = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
                         k_s[1:] != k_s[:-1]])
         rid = _cumsum_i32(f_.to(I32)) - 1
@@ -834,6 +868,20 @@ def _pair_rounds(plo, phi, pair_oml, stats, cls_lp, size, frozen, M2, P,
 
 # ---------------------------------------------------------------- decode
 
+def _maps(class_probs, sameness_probs, num_classes, offsets, device):
+    """(H, W, C) / (H, W, O) maps as tensors on the resolved device, and
+    the offsets as a tuple of int pairs; raises on a shape mismatch."""
+    dev = resolve_device(device)
+    class_probs = torch.as_tensor(class_probs, device=dev)
+    sameness_probs = torch.as_tensor(sameness_probs, device=dev)
+    if (class_probs.shape[-1] != num_classes
+            or sameness_probs.shape[-1] != len(offsets)):
+        raise ValueError("class/sameness maps do not match num_classes=%d "
+                         "and %d offsets" % (num_classes, len(offsets)))
+    offsets = tuple(tuple(int(v) for v in o) for o in offsets)
+    return class_probs, sameness_probs, offsets, dev
+
+
 def decode_hierarchical(class_probs, sameness_probs, num_classes, offsets,
                         same_different_bias=0.0, object_merge_factor=1.0,
                         merge_logprob_bias=0.0, den_mode="sum",
@@ -855,14 +903,9 @@ def decode_hierarchical(class_probs, sameness_probs, num_classes, offsets,
     int32 instance ids 1..K, inst_class (M2,) int32); with
     `return_stats=True` a dict of int32 scalar tensors (n_ext,
     edges_dropped, pairs_total, pairs_dropped, n_frozen) follows."""
-    dev = resolve_device(device)
-    class_probs = torch.as_tensor(class_probs, device=dev)
-    sameness_probs = torch.as_tensor(sameness_probs, device=dev)
+    class_probs, sameness_probs, offsets, dev = _maps(
+        class_probs, sameness_probs, num_classes, offsets, device)
     H, W, C = class_probs.shape
-    if C != num_classes or sameness_probs.shape[-1] != len(offsets):
-        raise ValueError("class/sameness maps do not match num_classes=%d "
-                         "and %d offsets" % (num_classes, len(offsets)))
-    offsets = tuple(tuple(int(v) for v in o) for o in offsets)
     N = H * W
     M = min(max_components, N)
     M2 = min(pair_components, M)
@@ -995,16 +1038,10 @@ def decode_hierarchical(class_probs, sameness_probs, num_classes, offsets,
     tm = total_map if parent is None else parent[total_map]
     t16_c = t_c & ((1 << 16) - 1)
     if relabel:
-        inst_id = _cumsum_i32(is_inst.to(I32))
-        idtab = torch.where(is_inst, inst_id, 0)
+        idtab, inst_class = _instance_tables(root_class, is_inst)
         mask = _run_apply(
             None, comp_c, comp2d_s1, runs, vals_c=idtab[tm[t16_c]],
             table_fn=lambda: idtab[tm][t_full() & ((1 << 16) - 1)])
-        k = torch.where(is_inst, inst_id - 1, M2 - 1)
-        inst_class = torch.full((M2,), -1, dtype=I32, device=dev)
-        inst_class.scatter_reduce_(
-            0, k.long(), torch.where(is_inst, root_class, -1), "amax",
-            include_self=True)
         out = (mask, inst_class)
     else:
         comp = _run_apply(None, comp_c, comp2d_s1, runs, vals_c=tm[t16_c],
@@ -1014,3 +1051,450 @@ def decode_hierarchical(class_probs, sameness_probs, num_classes, offsets,
         stats = dict(stats, n_frozen=frozen.sum(dtype=I32))
         return out + (stats,)
     return out
+
+
+# ------------------------------------------------------------ exact mode
+
+def boruvka_rolls_round(class_probs, sameness_probs, num_classes, offsets,
+                        same_different_bias=0.0, object_merge_factor=1.0,
+                        merge_logprob_bias=0.0, den_mode="sum",
+                        hook_threshold=0.0, device=None):
+    """The first aggregated-Boruvka round on singleton components, from
+    per-offset priority planes alone: each pixel hooks to its best
+    partner with priority >= `hook_threshold` (ties to the larger
+    partner id), 2-cycles resolve to the smaller id, and pointer jumping
+    contracts the forest.  Returns (label (H, W) int32 self-rooted root
+    pixel ids, n_comp () int32, n_ext () int32 edges between different
+    components)."""
+    class_probs, sameness_probs, offsets, dev = _maps(
+        class_probs, sameness_probs, num_classes, offsets, device)
+    H, W = class_probs.shape[:2]
+    N = H * W
+    omf = float(np.float32(object_merge_factor))
+    bias = float(np.float32(merge_logprob_bias))
+    cls_lp_pix, log_odds = _log_domain(class_probs, sameness_probs,
+                                       same_different_bias)
+    best_pix = cls_lp_pix.max(dim=-1).values
+    pix_id = _arange(N, dev).reshape(H, W)
+    best_pri = torch.full((H, W), NEG_INF, dtype=F32, device=dev)
+    best_partner = torch.full((H, W), -1, dtype=I32, device=dev)
+
+    def consider(pri, partner):
+        nonlocal best_pri, best_partner
+        take = (pri > best_pri) | ((pri == best_pri)
+                                   & (partner > best_partner))
+        best_pri = torch.where(take, pri, best_pri)
+        best_partner = torch.where(take, partner, best_partner)
+
+    for oi, (di, dj) in enumerate(offsets):
+        oml = log_odds[oi]
+        joint = (cls_lp_pix + _shift2d(cls_lp_pix, di, dj, 0.0)).max(
+            dim=-1).values
+        cdl = joint - best_pix - _shift2d(best_pix, di, dj, 0.0)
+        if den_mode == "sum":
+            pri = (oml * omf + cdl) / 2.0 + bias
+        else:
+            pri = oml * omf + cdl + bias
+        partner_fwd = _shift2d(pix_id, di, dj, -1)
+        consider(torch.where(partner_fwd >= 0, pri, NEG_INF), partner_fwd)
+        pri_bwd = _shift2d(pri, -di, -dj, NEG_INF)
+        partner_bwd = _shift2d(pix_id, -di, -dj, -1)
+        consider(torch.where(partner_bwd >= 0, pri_bwd, NEG_INF),
+                 partner_bwd)
+
+    hook = best_pri >= float(np.float32(hook_threshold))
+    parent = _contract(torch.where(hook, best_partner, pix_id).reshape(-1))
+    label = parent.reshape(H, W)
+    n_comp = (parent == _arange(N, dev)).sum(dtype=I32)
+    n_ext = torch.zeros((), dtype=I32, device=dev)
+    for di, dj in offsets:
+        other = _shift2d(label, di, dj, -1)
+        n_ext = n_ext + ((other >= 0) & (other != label)).sum(dtype=I32)
+    return label, n_comp, n_ext
+
+
+def _count_unique_pairs(label2d, offsets):
+    """Number of distinct component pairs linked by any (pixel, offset)
+    edge of a root-pixel-id label grid; sizes the exact finisher's
+    `pair_slots`.  The reference's 2-key sort with its 2**30 sentinel,
+    as one int64 key (lo << 31 | hi)."""
+    SENT = 2 ** 30
+    keys = []
+    for di, dj in offsets:
+        other = _shift2d(label2d, di, dj, -1)
+        ext = (other >= 0) & (other != label2d)
+        lo = torch.where(ext, torch.minimum(label2d, other), SENT)
+        hi = torch.where(ext, torch.maximum(label2d, other), SENT)
+        keys.append(((lo.to(torch.int64) << 31) | hi).reshape(-1))
+    key_s = torch.sort(torch.cat(keys)).values
+    first = torch.cat([torch.ones((1,), dtype=torch.bool,
+                                  device=key_s.device),
+                       key_s[1:] != key_s[:-1]])
+    return (first & (key_s < (SENT << 31))).sum(dtype=I32)
+
+
+def _finalize_components(comp, cls_lp, size, frozen, M, do_prune,
+                         prune_threshold):
+    """`_finalize_tables` plus the per-pixel prune apply, for decode
+    paths that hold a pixel-level component plane."""
+    parent, root_class, is_instance_root = _finalize_tables(
+        cls_lp, size, frozen, M, do_prune, prune_threshold)
+    if parent is not None:
+        comp = parent[comp.reshape(-1)].reshape(comp.shape)
+    return comp, root_class, is_instance_root
+
+
+def _instance_tables(root_class, is_instance_root):
+    """(ids (M,) int32: component -> instance id 1..K, 0 elsewhere;
+    inst_class (M,) int32: class of instance k at k-1, padded with -1)."""
+    M = root_class.shape[0]
+    inst_id = _cumsum_i32(is_instance_root.to(I32))
+    ids = torch.where(is_instance_root, inst_id, 0).to(I32)
+    k = torch.where(is_instance_root, inst_id - 1, M - 1)
+    inst_class = torch.full((M,), -1, dtype=I32, device=root_class.device)
+    # scatter-max: non-instance slots write -1 into k = M-1, which must
+    # not clobber a real instance there (instance classes are >= 1)
+    inst_class.scatter_reduce_(
+        0, k.long(), torch.where(is_instance_root, root_class.to(I32), -1),
+        "amax", include_self=True)
+    return ids, inst_class
+
+
+def relabel_mask(label, root_class, is_instance_root):
+    """Compact component ids into instance ids 1..K (0 = background).
+    label (H, W) int32 indexes root_class (M,).  Returns (mask (H, W)
+    int32, inst_class (M,) int32 with inst_class[k-1] the class of
+    instance k, padded with -1).  The per-pixel lookup is the tgather
+    kernel on CUDA."""
+    ids, inst_class = _instance_tables(root_class, is_instance_root)
+    mask = _tgather_op.table_gather(
+        ids.contiguous(), label.reshape(-1).to(I32).contiguous())
+    return mask.reshape(label.shape), inst_class
+
+
+def _edge_sort(ext, elo, ehi, M, K):
+    """Phase 2 of `decode_on_device`: order the (pixel, offset) edges so
+    the first K hold the external ones, pair-contiguous when capped.
+    Returns (kept edge indices (K,) int64, e_live (K,) bool).  Uncapped:
+    a stable flag sort.  Capped: a stable sort of the pair key (int32
+    when (M+1)^2-1 fits, else int64 for the reference's 2-key sort),
+    dropping whole the pair that straddles the cut at K."""
+    E_all = ext.shape[0]
+    eidx = torch.arange(E_all, device=ext.device)
+    if K == E_all:
+        flag_s, kept = _sort(torch.where(ext, 0, 1).to(I32), eidx)
+        return kept, flag_s == 0
+    P = M + 1
+    SENT = P * P - 1
+    ekey = _pair_keys(elo, ehi, ext, P, SENT, SENT <= 2 ** 31 - 1)
+    ekey_s, kept = _sort(ekey, eidx)
+    straddles = bool(ekey_s[K] == ekey_s[K - 1]) if K < E_all else False
+    ekey_s, kept = ekey_s[:K], kept[:K]
+    e_live = ekey_s < SENT
+    if straddles:
+        e_live = e_live & (ekey_s != ekey_s[-1])
+    return kept, e_live
+
+
+def decode_on_device(class_probs, sameness_probs, num_classes, offsets,
+                     same_different_bias=0.0, object_merge_factor=1.0,
+                     merge_logprob_bias=0.0, den_mode="sum",
+                     do_prune=False, prune_threshold=200.0,
+                     max_rounds=64, max_components=None, max_edges=None,
+                     ccl_sweeps=0, ccl_margin=0.0, anneal_start=32.0,
+                     anneal_halvings=0, initial_labels=None,
+                     stop_at_max_rounds=False, device=None):
+    """Decode one image with aggregated Boruvka rounds over all
+    (pixel, offset) edges (same arguments, defaults and outputs as the
+    reference's; see its docstring).  Phase 1: `initial_labels` or the
+    flood fill (off by default); phase 2: edge compaction, capped at
+    `max_edges` with whole-pair drops; phase 3: rounds with the annealed
+    threshold until one merges nothing.  Reaching `max_rounds` without
+    that raises, unless `stop_at_max_rounds` asks for the reference's
+    plain stop (the staged decode's first pass runs a fixed budget of
+    rounds by design).  Returns (comp (H, W) int32 in [0, M), root_class
+    (M,), is_instance_root (M,)); the final per-pixel lookup is the
+    tgather kernel on CUDA."""
+    class_probs, sameness_probs, offsets, dev = _maps(
+        class_probs, sameness_probs, num_classes, offsets, device)
+    H, W, C = class_probs.shape
+    N = H * W
+    M = N if max_components is None else min(max_components, N)
+    omf = float(np.float32(object_merge_factor))
+    bias = float(np.float32(merge_logprob_bias))
+    cls_lp_pix, log_odds = _log_domain(class_probs, sameness_probs,
+                                       same_different_bias)
+
+    # ---- phase 1: flood fill or the given labels ----
+    if initial_labels is not None:
+        label = torch.as_tensor(initial_labels, device=dev).to(I32)
+    else:
+        argmax_pix = torch.argmax(cls_lp_pix, dim=-1)
+        label = _flood_fill(argmax_pix, log_odds, offsets, den_mode, omf,
+                            bias, ccl_sweeps, ccl_margin)
+    comp2d, cls_lp, size, frozen, _ = _densify_stats(label, cls_lp_pix, M)
+
+    # ---- phase 2: edge compaction ----
+    rows = torch.arange(H, device=dev)[:, None]
+    cols = torch.arange(W, device=dev)[None, :]
+    ea_l, eb_l, ext_l = [], [], []
+    for di, dj in offsets:
+        b2 = torch.roll(comp2d, (-di, -dj), (0, 1))
+        valid = ((rows + di >= 0) & (rows + di < H)
+                 & (cols + dj >= 0) & (cols + dj < W))
+        ea_l.append(comp2d.reshape(-1))
+        eb_l.append(b2.reshape(-1))
+        ext_l.append((valid & (comp2d != b2)).reshape(-1))
+    ea = torch.cat(ea_l)
+    eb = torch.cat(eb_l)
+    ext = torch.cat(ext_l)
+    E_all = ea.shape[0]
+    K = E_all if max_edges is None else min(int(max_edges), E_all)
+    kept, e_live = _edge_sort(ext, torch.minimum(ea, eb),
+                              torch.maximum(ea, eb), M, K)
+    ea, eb, eo = ea[kept], eb[kept], log_odds.reshape(-1)[kept]
+
+    # ---- phase 3: Boruvka rounds ----
+    P = M + 1
+    SENT = P * P - 1
+    packed = SENT <= 2 ** 31 - 1
+    comp_ids = _arange(M, dev)
+    total_map = comp_ids
+    one = torch.ones((1,), dtype=torch.bool, device=dev)
+    rounds = 0
+    while True:
+        if rounds >= max_rounds:
+            if stop_at_max_rounds:
+                break
+            raise RuntimeError(
+                "decode_on_device: no fixed point within max_rounds=%d "
+                "rounds" % max_rounds)
+        best_lp = cls_lp.max(dim=1).values
+        tau = (float(np.float32(anneal_start)
+                     * np.exp2(-np.float32(rounds)))
+               if rounds < anneal_halvings else 0.0)
+        lo = torch.minimum(ea, eb)
+        hi = torch.maximum(ea, eb)
+        live = e_live & (lo != hi) & ~frozen[lo] & ~frozen[hi]
+        key_s, oml_s = _sort(_pair_keys(lo, hi, live, P, SENT, packed), eo)
+        lo_s = torch.div(key_s, P, rounding_mode="floor").to(I32)
+        hi_s = (key_s % P).to(I32)
+        first = torch.cat([one, key_s[1:] != key_s[:-1]])
+        run_id = _cumsum_i32(first.to(I32)) - 1
+        pair_oml = _segment_sum(oml_s, run_id, K)[run_id]
+
+        lo_c = torch.clamp_max(lo_s, M - 1)
+        hi_c = torch.clamp_max(hi_s, M - 1)
+        joint = cls_lp[lo_c] + cls_lp[hi_c]
+        cdl = joint.max(dim=1).values - best_lp[lo_c] - best_lp[hi_c]
+        n1 = size[lo_c].to(F32)
+        n2 = size[hi_c].to(F32)
+        if den_mode == "sum":
+            pri = (pair_oml * omf + cdl) / (n1 + n2) + bias
+        else:
+            pri = (pair_oml * omf + cdl + bias) / (n1 * n2)
+        dead = lo_s >= M
+        pri = torch.where(dead, NEG_INF, pri)
+
+        comp_best = torch.maximum(_segment_max(pri, lo_c, M),
+                                  _segment_max(pri, hi_c, M))
+        comp_best = torch.where(torch.isfinite(comp_best), comp_best,
+                                NEG_INF)
+        elig_lo = (pri == comp_best[lo_c]) & ~dead
+        elig_hi = (pri == comp_best[hi_c]) & ~dead
+        partner = torch.maximum(
+            _segment_max(torch.where(elig_lo, hi_c, -1), lo_c, M),
+            _segment_max(torch.where(elig_hi, lo_c, -1), hi_c, M))
+        parent = _contract(torch.where((comp_best >= tau) & (partner >= 0),
+                                       torch.clamp_min(partner, 0),
+                                       comp_ids))
+        dying = parent != comp_ids
+        cls_lp = _scatter_add(cls_lp, parent,
+                              torch.where(dying[:, None], cls_lp, 0.0))
+        size = size + _segment_sum(torch.where(dying, size, 0), parent, M)
+        cls_lp = torch.where(dying[:, None], 0.0, cls_lp)
+        size = torch.where(dying, 0, size)
+        ea = parent[ea]
+        eb = parent[eb]
+        total_map = parent[total_map]
+        rounds += 1
+        if not bool(dying.any()) and tau <= 0.0:
+            break
+
+    comp = _tgather_op.table_gather(
+        total_map.contiguous(), comp2d.reshape(-1).contiguous()
+    ).reshape(H, W)
+    return _finalize_components(comp, cls_lp, size, frozen, M, do_prune,
+                                prune_threshold)
+
+
+def _pair_exact_finish(class_probs, sameness_probs, num_classes, offsets,
+                       initial_labels, same_different_bias=0.0,
+                       object_merge_factor=1.0, merge_logprob_bias=0.0,
+                       den_mode="sum", max_components=65536,
+                       pair_slots=262144, pair_rounds=64, edge_slots=None,
+                       do_prune=False, prune_threshold=200.0,
+                       anneal_start=0.0, anneal_halvings=0, device=None):
+    """Exact finisher of `run_segmentation_device`: aggregated Boruvka
+    pair rounds from `initial_labels` (self-rooted root pixel ids), with
+    capacities the caller sized from measured counts.  Int32 pair keys
+    when the component space allows, else int64 (the 2-key form).
+    Returns (comp (H, W), root_class (M2,), is_instance_root (M2,))."""
+    class_probs, sameness_probs, offsets, dev = _maps(
+        class_probs, sameness_probs, num_classes, offsets, device)
+    H, W, C = class_probs.shape
+    M2 = min(max_components, H * W)
+    omf = float(np.float32(object_merge_factor))
+    bias = float(np.float32(merge_logprob_bias))
+    cls_lp_pix, log_odds = _log_domain(class_probs, sameness_probs,
+                                       same_different_bias)
+    label = torch.as_tensor(initial_labels, device=dev).to(I32)
+    comp2d, cls_lp, size, frozen, _ = _densify_stats(label, cls_lp_pix, M2)
+    packed = (M2 + 1) * (M2 + 1) - 1 <= 2 ** 31 - 1
+    total_map, cls_lp, size, _ = _pair_phase(
+        comp2d, cls_lp, size, frozen, log_odds, offsets, M2, pair_slots,
+        pair_rounds, den_mode, omf, bias, packed=packed,
+        edge_slots=edge_slots, anneal_start=anneal_start,
+        anneal_halvings=anneal_halvings)
+    comp = total_map[comp2d.reshape(-1)].reshape(H, W)
+    return _finalize_components(comp, cls_lp, size, frozen, M2, do_prune,
+                                prune_threshold)
+
+
+def decode_on_device_staged(class_probs, sameness_probs, num_classes,
+                            offsets, stage1_rounds=4, stage2_components=8,
+                            stage2_edges=2, device=None, **kw):
+    """Exact decode in three stages: the rolls-only first round, a few
+    uncapped aggregated rounds (`stage1_rounds`, a budget, not a
+    convergence cap), then a capped pass with capacities
+    N // stage2_components and N // stage2_edges.  Returns what
+    `decode_on_device` returns."""
+    class_probs, sameness_probs, offsets, dev = _maps(
+        class_probs, sameness_probs, num_classes, offsets, device)
+    H, W = class_probs.shape[:2]
+    N = H * W
+    for name in ("initial_labels", "max_components", "max_edges"):
+        kw.pop(name, None)
+    kw1 = {k: kw[k] for k in ("same_different_bias", "object_merge_factor",
+                              "merge_logprob_bias", "den_mode") if k in kw}
+    lab1, _, _ = boruvka_rolls_round(class_probs, sameness_probs,
+                                     num_classes, offsets, device=dev, **kw1)
+    lab2, _, _ = decode_on_device(
+        class_probs, sameness_probs, num_classes, offsets,
+        initial_labels=lab1, max_rounds=stage1_rounds,
+        stop_at_max_rounds=True, device=dev, **kw1)
+    # decode_on_device returns dense component ids; re-anchor them to
+    # self-rooted pixel ids (each component's smallest pixel)
+    flat2 = lab2.reshape(-1).long()
+    rep_pixel = torch.full((N,), 2 ** 31 - 1, dtype=I32, device=dev)
+    rep_pixel.scatter_reduce_(0, flat2, _arange(N, dev), "amin",
+                              include_self=True)
+    lab2 = rep_pixel[flat2].reshape(H, W)
+    return decode_on_device(
+        class_probs, sameness_probs, num_classes, offsets,
+        initial_labels=lab2, max_components=max(4096, N // stage2_components),
+        max_edges=max(16384, N // stage2_edges), device=dev, **kw)
+
+
+def decode_on_device_batch(class_probs, sameness_probs, num_classes,
+                           offsets, device=None, **kw):
+    """Batched decode (B, H, W, C) / (B, H, W, O) -> (masks (B, H, W),
+    inst_classes (B, M)): each image decoded on its own (the staged
+    exact decode, or `decode_on_device` when capacities are given), then
+    relabelled."""
+    dev = resolve_device(device)
+    class_probs = torch.as_tensor(class_probs, device=dev)
+    sameness_probs = torch.as_tensor(sameness_probs, device=dev)
+    masks, classes = [], []
+    for c, s in zip(class_probs, sameness_probs):
+        if kw.get("max_components") is None and kw.get("max_edges") is None:
+            out = decode_on_device_staged(
+                c, s, num_classes, offsets, device=dev,
+                **{k: v for k, v in kw.items()
+                   if k not in ("max_components", "max_edges")})
+        else:
+            out = decode_on_device(c, s, num_classes, offsets, device=dev,
+                                   **kw)
+        mask, inst_class = relabel_mask(*out)
+        masks.append(mask)
+        classes.append(inst_class)
+    return torch.stack(masks), torch.stack(classes)
+
+
+def _bucket(n, floor):
+    """Next power of two >= max(n, floor): capacities from measured
+    counts (bucketing bounds the reference's compilations)."""
+    n = max(int(n), floor, 1)
+    return 1 << int(np.ceil(np.log2(n)))
+
+
+def run_segmentation_device(class_probs, sameness_probs, num_classes,
+                            offsets, same_different_bias=0.0,
+                            object_merge_factor=1.0, merge_logprob_bias=0.0,
+                            den_mode="sum", do_prune=False,
+                            prune_threshold=200.0, max_rounds=48,
+                            max_components=None, max_edges=None,
+                            mode="exact", return_stats=False,
+                            anneal_start=8.0, anneal_halvings=8,
+                            device=None):
+    """Host-friendly decode with the reference's signature: channel-first
+    (C, H, W) / (O, H, W) maps (numpy or tensors) in, (mask (H, W) numpy
+    int32, classes list[, stats dict of ints]) out.
+
+    mode='exact' (default): the rolls round, then annealed aggregated
+    pair rounds with capacities bucketed from the measured component,
+    pair and edge counts (read on the host: nothing can overflow).
+    mode='hier': `decode_hierarchical`'s serving configuration (caps are
+    a ValueError there).  Passing max_components / max_edges otherwise
+    selects the capped single-pass `decode_on_device`."""
+    dev = resolve_device(device)
+    cp = torch.as_tensor(class_probs, device=dev).movedim(0, -1)
+    sp = torch.as_tensor(sameness_probs, device=dev).movedim(0, -1)
+    offsets = tuple(tuple(int(v) for v in o) for o in offsets)
+    hyper = dict(same_different_bias=same_different_bias,
+                 object_merge_factor=object_merge_factor,
+                 merge_logprob_bias=merge_logprob_bias, den_mode=den_mode)
+    stats = None
+    if mode == "hier":
+        if max_components is not None or max_edges is not None:
+            raise ValueError(
+                "mode='hier' runs decode_hierarchical's static serving "
+                "configuration and would ignore max_components/"
+                "max_edges; drop the caps, or drop mode='hier' to select "
+                "the capped single-pass decode_on_device")
+        label, root_class, is_inst, stats = decode_hierarchical(
+            cp, sp, num_classes, offsets, do_prune=do_prune,
+            prune_threshold=prune_threshold, return_stats=True, device=dev,
+            **hyper)
+    elif max_components is not None or max_edges is not None:
+        label, root_class, is_inst = decode_on_device(
+            cp, sp, num_classes, offsets, max_components=max_components,
+            max_edges=max_edges, do_prune=do_prune,
+            prune_threshold=prune_threshold, max_rounds=max_rounds,
+            device=dev, **hyper)
+    else:
+        label, n_comp, n_ext = boruvka_rolls_round(
+            cp, sp, num_classes, offsets, device=dev, **hyper)
+        n_pairs = int(_count_unique_pairs(label, offsets))
+        label, root_class, is_inst = _pair_exact_finish(
+            cp, sp, num_classes, offsets, initial_labels=label,
+            max_components=_bucket(int(n_comp), 4096),
+            pair_slots=_bucket(n_pairs + 2, 16384),
+            edge_slots=_bucket(int(n_ext) + 1, 16384),
+            pair_rounds=max_rounds, do_prune=do_prune,
+            prune_threshold=prune_threshold,
+            anneal_start=float(anneal_start),
+            anneal_halvings=int(anneal_halvings), device=dev, **hyper)
+        stats = {"n_ext": int(n_ext), "edges_dropped": 0,
+                 "pairs_total": n_pairs, "pairs_dropped": 0, "n_frozen": 0}
+    mask, inst_class = relabel_mask(label, root_class, is_inst)
+    inst_class = inst_class.cpu().numpy()
+    classes = []
+    for v in inst_class:
+        if v == -1:
+            break
+        classes.append(int(v))
+    mask = mask.cpu().numpy()
+    if return_stats:
+        return mask, classes, {k: int(v) for k, v in (stats or {}).items()}
+    return mask, classes

@@ -1,12 +1,12 @@
-"""End-to-end frame: net forward + hierarchical decode in memory, no
-host round trip between them (`mergenet_tpu/utils/e2e.py` is the
-reference; only its default 'hier' mode is ported)."""
+"""End-to-end frame: net forward + merge decode in memory, no host round
+trip between them (`mergenet_tpu/utils/e2e.py` is the reference)."""
 
 import torch
 
 from . import resolve_device
-from .decoder.device import decode_hierarchical
-from .models import logits_at
+from .decoder.device import (decode_hierarchical, decode_on_device,
+                             decode_on_device_staged, relabel_mask)
+from .models import logits_at, probs_at
 
 
 def upsample_nearest(mask, size):
@@ -23,24 +23,54 @@ def upsample_nearest(mask, size):
 
 def build_e2e_infer(model, num_classes, offsets, decode_size=None,
                     same_different_bias=0.0, object_merge_factor=1.0,
-                    merge_logprob_bias=0.03, dtype=None, device=None):
+                    merge_logprob_bias=0.03, max_rounds=48,
+                    max_components=None, max_edges=None, dtype=None,
+                    decode_mode="hier", hier_kwargs=None, device=None):
     """Returns infer(imgs) -> (masks (N, H, W) int32, inst_classes
-    (N, M2) int32).
+    (N, M) int32).
 
     imgs: (N, H, W, 3) uint8 images (numpy or tensor), scaled to [0, 1)
     by /256 as the reference's bench does.  The net runs at full
-    resolution in `dtype` (None: float32) and emits logits directly at
-    `decode_size` (default half resolution); `decode_hierarchical`
-    decodes them (from_logits=True, relabel=True) and the mask is
-    upsampled back with nearest neighbour.  `model` is moved to `device`
-    (None means CUDA) and `dtype`."""
+    resolution in `dtype` (None: float32) and emits its maps at
+    `decode_size` (default half resolution); the mask is upsampled back
+    with nearest neighbour.  `model` is moved to `device` (None means
+    CUDA) and `dtype`.
+
+    decode_mode: 'hier' (default) decodes the raw logits with
+    `decode_hierarchical` (from_logits=True, relabel=True; capacities
+    from `hier_kwargs`).  'exact' decodes sigmoid probabilities with the
+    staged exact decode (`decode_on_device_staged`), or, when
+    `max_components` / `max_edges` are given, with the capped
+    single-pass `decode_on_device`; `relabel_mask` then numbers the
+    instances."""
+    if decode_mode not in ("hier", "exact"):
+        raise ValueError("decode_mode must be 'hier' or 'exact', got %r"
+                         % (decode_mode,))
     dev = resolve_device(device)
     model = model.to(device=dev, dtype=dtype or torch.float32).eval()
     offsets = tuple(tuple(int(v) for v in o) for o in offsets)
     kw = dict(same_different_bias=same_different_bias,
               object_merge_factor=object_merge_factor,
-              merge_logprob_bias=merge_logprob_bias, relabel=True,
-              from_logits=True, device=dev)
+              merge_logprob_bias=merge_logprob_bias, device=dev)
+
+    def decode(x, dh, dw):
+        if decode_mode == "hier":
+            logits = logits_at(model, x, (dh, dw))[0]
+            return decode_hierarchical(
+                logits[..., :num_classes], logits[..., num_classes:],
+                num_classes, offsets, relabel=True, from_logits=True, **kw,
+                **(hier_kwargs or {}))
+        small = probs_at(model, x, (dh, dw))[0]
+        cp, sp = small[..., :num_classes], small[..., num_classes:]
+        if max_components is None and max_edges is None:
+            out = decode_on_device_staged(cp, sp, num_classes, offsets,
+                                          max_rounds=max_rounds, **kw)
+        else:
+            out = decode_on_device(cp, sp, num_classes, offsets,
+                                   max_components=max_components,
+                                   max_edges=max_edges,
+                                   max_rounds=max_rounds, **kw)
+        return relabel_mask(*out)
 
     @torch.no_grad()
     def infer(imgs):
@@ -52,10 +82,7 @@ def build_e2e_infer(model, num_classes, offsets, decode_size=None,
         masks, classes = [], []
         for n in range(N):
             x = (imgs[n:n + 1].float() / 256.0).to(dtype or torch.float32)
-            logits = logits_at(model, x, (dh, dw))[0]
-            mask, inst_class = decode_hierarchical(
-                logits[..., :num_classes], logits[..., num_classes:],
-                num_classes, offsets, **kw)
+            mask, inst_class = decode(x, dh, dw)
             masks.append(upsample_nearest(mask, (H, W)))
             classes.append(inst_class)
         return torch.stack(masks), torch.stack(classes)

@@ -41,6 +41,8 @@ _SIGNATURES = {
                              _P),
     # table, idx, out, n, m, stream
     "mn_table_gather": (_P, _P, _P, _I, _I, _P),
+    # table, idx, out, n, m, stream
+    "mn_pgather": (_P, _P, _P, _I, _I, _P),
 }
 
 _lib = None

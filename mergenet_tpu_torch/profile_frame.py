@@ -16,8 +16,6 @@ import argparse
 import collections
 import json
 import os
-import statistics
-import subprocess
 import time
 
 import torch
@@ -26,21 +24,10 @@ from . import e2e, io
 from .convert import load_flax_weights
 from .decoder.device import decode_hierarchical
 from .models import PSPFPNet, logits_at
+from .timing import card, median_ms
 
 FIX = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "tests", "fixtures", "certification512")
-
-
-def _median_ms(fn, reps=5):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-    return statistics.median(times)
 
 
 def _busy_ms(intervals):
@@ -87,9 +74,9 @@ def main(argv=None):
             lg[..., :9], lg[..., 9:], 9, offsets, object_merge_factor=1.0,
             merge_logprob_bias=0.03, relabel=True, from_logits=True)
 
-    out = {"net_ms": _median_ms(lambda: logits_at(net, x, (512, 1024))),
-           "decode_ms": _median_ms(decode),
-           "frame_ms": _median_ms(lambda: infer(img))}
+    out = {"net_ms": median_ms(lambda: logits_at(net, x, (512, 1024))),
+           "decode_ms": median_ms(decode),
+           "frame_ms": median_ms(lambda: infer(img))}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -116,10 +103,7 @@ def main(argv=None):
         "top_kernels_ms_per_decode": [
             [name[:90], us / 1e3 / args.frames]
             for name, us in by_name.most_common(15)],
-        "card": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True,
-            text=True).stdout.strip()})
+        "card": card()})
     print(json.dumps(out))
 
 

@@ -14,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from mergenet_tpu_torch.decoder.device import decode_hierarchical
+from mergenet_tpu_torch.decoder.device import (decode_hierarchical,
+                                               decode_on_device,
+                                               run_segmentation_device)
 from mergenet_tpu_torch.io import load_offsets, load_probs
-from mergenet_tpu_torch.ops import _build, absorb, floodscan, tgather
+from mergenet_tpu_torch.ops import _build, absorb, floodscan, pgather, tgather
 from torch_port_helpers import (FIX512, SERVE_KW, assert_same_partition,
                                 cuda_device)  # noqa: F401
 
@@ -80,3 +82,46 @@ def test_decode_on_card_matches_cpu(cuda_device):
                           cc.numpy())
     assert {k: int(v) for k, v in gs.items()} == \
         {k: int(v) for k, v in cs.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8192, 58112, 65536, 200003])
+def test_pgather_kernel_matches_plain(cuda_device, m):
+    """In-range indices, plus out-of-range ones that clamp; tables that
+    fit one shared-memory chunk and tables that stream through it."""
+    rng = np.random.default_rng(m)
+    table = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, m)
+                             .astype(np.int32)).to(cuda_device)
+    idx = rng.integers(0, m, 524288 + 77).astype(np.int32)
+    idx[:4] = [-2 ** 31, -1, m, 2 ** 31 - 1]
+    idx = torch.from_numpy(idx).to(cuda_device)
+    before = _build.LAUNCHES["pgather"]
+    got = pgather.pgather(table, idx)
+    assert _build.LAUNCHES["pgather"] == before + 1
+    assert torch.equal(got, pgather.pgather_plain(table, idx))
+
+
+@pytest.mark.cuda
+def test_exact_decode_on_card_matches_cpu(cuda_device):
+    """run_segmentation_device(mode='exact') on a 256x512 crop of
+    fixture 0 (int32 pair keys at this size; chip_smoke.py decodes the
+    whole fixture, whose int64 keys this crop does not reach), and the
+    capped decode_on_device, whose final lookup launches tgather."""
+    cp, sp = load_probs(FIX512, 0)
+    cp, sp = cp[:256, 256:768], sp[:256, 256:768]
+    offsets = load_offsets(FIX512)
+    cf, sf = np.moveaxis(cp, -1, 0), np.moveaxis(sp, -1, 0)
+    before = _build.LAUNCHES["tgather"]
+    gm, gc, gs = run_segmentation_device(cf, sf, 9, offsets,
+                                         return_stats=True, **SERVE_KW)
+    assert _build.LAUNCHES["tgather"] > before
+    cm, cc, cs = run_segmentation_device(cf, sf, 9, offsets, device="cpu",
+                                         return_stats=True, **SERVE_KW)
+    assert_same_partition(gm, cm)
+    assert gc == cc and gs == cs
+    before = _build.LAUNCHES["tgather"]
+    kw = dict(SERVE_KW, max_components=16384, max_edges=262144)
+    g = decode_on_device(cp, sp, 9, offsets, **kw)
+    assert _build.LAUNCHES["tgather"] == before + 1
+    c = decode_on_device(cp, sp, 9, offsets, device="cpu", **kw)
+    assert_same_partition(g[0].cpu().numpy(), c[0].numpy())

@@ -24,6 +24,9 @@ SCRIPT = textwrap.dedent("""
         mergenet_tpu_torch.__path__, "mergenet_tpu_torch.")]
     for m in mods:
         importlib.import_module(m)
+    for m in ("serving", "bench_pallas_gather", "ops.pgather", "e2e",
+              "decoder.device"):
+        assert "mergenet_tpu_torch." + m in mods, m
     import chip_smoke
     from mergenet_tpu_torch.decoder.device import decode_hierarchical
     from mergenet_tpu_torch.models import PSPFPNet, logits_at
@@ -32,6 +35,12 @@ SCRIPT = textwrap.dedent("""
     sp = rng.random((32, 64, 2)).astype(np.float32)
     mask, cls = decode_hierarchical(cp, sp, 3, ((1, 0), (0, 2)),
                                     relabel=True, device="cpu")
+    from mergenet_tpu_torch.decoder.device import run_segmentation_device
+    run_segmentation_device(cp.transpose(2, 0, 1), sp.transpose(2, 0, 1),
+                            3, ((1, 0), (0, 2)), device="cpu")
+    from mergenet_tpu_torch.ops.pgather import pgather
+    pgather(torch.arange(5, dtype=torch.int32),
+            torch.arange(3, dtype=torch.int32))
     logits_at(PSPFPNet(5).eval(), torch.rand(1, 64, 64, 3), (16, 16))
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in %r
                     and sys.modules[n] is not None)
@@ -46,7 +55,7 @@ def test_port_imports_without_jax_flax_cv2_pil():
         [sys.executable, "-c", SCRIPT % (BLOCKED, BLOCKED)], cwd=ROOT,
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split("IMPORTED")[1]) >= 12
+    assert int(proc.stdout.split("IMPORTED")[1]) >= 15
 
 
 def test_no_reference_imports_in_port_sources():
@@ -56,7 +65,7 @@ def test_no_reference_imports_in_port_sources():
         re.escape(b) for b in BLOCKED), re.M)
     files = list((ROOT / "mergenet_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 14
+    assert len(files) >= 17
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, (f, hits)
