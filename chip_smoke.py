@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written sm_90a kernels (one nvcc call), holds each
-against its plain PyTorch version at the shapes its paths give it,
-decodes a committed certification fixture on the card and on the CPU,
-then drives each path of the port through its user entry point, with
-the launch counts set to 0 just before and read just after:
+Builds the hand-written sm_90a kernels (one nvcc per source, started
+together), holds each against its plain PyTorch version at the shapes
+its paths give it, decodes a committed certification fixture on the
+card and on the CPU, then drives each path of the port through its user
+entry point, with the launch counts set to 0 just before and read just
+after:
 
 - the served frame: PSPFPNet-r50 in bf16 on a 1024x2048 image with the
   committed trained weights, logits at 512x1024, `decode_hierarchical`
@@ -50,6 +51,18 @@ VECTOR_OPS_PER_S = 67e12
 # merges; the integer kernels themselves are held bit-exact in phase 3
 MIN_PIXEL_AGREEMENT = 0.999
 MAX_INSTANCE_DIFF = 1
+
+# floodscan shapes held bit-equal beside the served one: (H, W, s, t,
+# ccl), chosen to break the kernel's tiling (16-byte path off, one
+# sweep, taller than a V strip, wider than an H block, strides over
+# half a tile)
+FLOOD_SHAPES = ((61, 130, 2, 1, 3), (37, 1000, 3, 2, 3),
+                (512, 1024, 2, 1, 1), (1500, 40, 1, 2, 2),
+                (9, 5000, 2, 1, 2), (3, 5000, 1300, 1, 1))
+# pgather table sizes held bit-equal on out-of-range indices: one
+# entry, the bench's two, odd sizes around 227 KB (what one block's
+# shared memory holds), and tables of 0.8 MB and 4 MB
+PGATHER_SIZES = (1, 8192, 58112, 58113, 65536, 200003, 1 << 20)
 
 # frame-phase gate on the bf16 net against its float32 forward (no TF32)
 # on the same card: bf16 keeps 8 mantissa bits, and the error grows
@@ -151,7 +164,8 @@ def main():
     if os.path.exists(stale):  # measure the real build every run
         os.unlink(stale)
     _build.library()
-    print("  nvcc: %d sources in one call, %.2f s -> %s"
+    print("  nvcc: %d sources, one nvcc each in parallel, then a link, "
+          "%.2f s -> %s"
           % (len(_build.sources()), _build.build_seconds,
              os.path.relpath(_build.library_path(), HERE)), flush=True)
 
@@ -198,6 +212,21 @@ def main():
         **measure(lambda: floodscan.flood_scan(h_S, v_S, s, t, ccl),
                   lambda: floodscan.flood_scan_plain(h_S, v_S, s, t, ccl)))
 
+    flood_extra = []
+    rng = np.random.default_rng(0)
+    for (fh, fw, fs, ft, fc) in FLOOD_SHAPES:
+        lh = torch.from_numpy(rng.random((fh, fw)) < 0.93).to(cuda)
+        lv = torch.from_numpy(rng.random((fh, fw)) < 0.93).to(cuda)
+        for hh, vv, planes in ((lh, lv, "h+v"), (lh, None, "h"),
+                               (None, lv, "v")):
+            eq = bool(torch.equal(
+                floodscan.flood_scan(hh, vv, fs, ft, fc),
+                floodscan.flood_scan_plain(hh, vv, fs, ft, fc)))
+            flood_extra.append(dict(shape="(%d, %d) s=%d t=%d ccl=%d %s"
+                                    % (fh, fw, fs, ft, fc, planes),
+                                    equal=eq))
+    results["floodscan"]["shapes"] = flood_extra
+
     label = D._flood_fill(argmax_pix, log_odds, offsets, "sum", omf, bias,
                           ccl, 2.0)
     M = 65536
@@ -225,7 +254,6 @@ def main():
             lambda: absorb.absorb_plain(comp2d, packed_own, log_odds,
                                         offsets, 1.0, 64)))
 
-    rng = np.random.default_rng(0)
     tg = {}
     for m in (16384, 65536, 131072, N):  # N: the exact path's tables
         table = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, m)
@@ -264,17 +292,29 @@ def main():
             **measure(lambda: pgather.pgather(table, idx),
                       lambda: pgather.pgather_plain(table, idx),
                       lambda: table[idx]))
-    m = 65536  # out-of-range indices clamp in the kernel and the plain
-    table = torch.from_numpy(rng.integers(0, 2 ** 30, m)
-                             .astype(np.int32)).to(cuda)
-    idx = torch.from_numpy(rng.integers(-2 * m, 2 * m, N)
-                           .astype(np.int32)).to(cuda)
-    idx[:2] = torch.tensor([-2 ** 31, 2 ** 31 - 1], dtype=torch.int32)
-    pg_oob = bool(torch.equal(pgather.pgather(table, idx),
-                              pgather.pgather_plain(table, idx)))
-    results["pgather"] = dict(pg[65536], shape="M=65536 N=%d (chunked)" % N,
-                              sizes={str(m): v for m, v in pg.items()},
-                              out_of_range_equal=pg_oob)
+    # every size, bit-equal on out-of-range indices with N not a
+    # multiple of 4, through the kernel's int4 branch (aligned, with a
+    # scalar tail) and its scalar branch (indices 4 bytes off alignment)
+    pg_sizes = []
+    n_odd = N + 3
+    for m in PGATHER_SIZES:
+        table = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, m)
+                                 .astype(np.int32)).to(cuda)
+        idx = torch.from_numpy(rng.integers(-m // 8, m + m // 8 + 1, n_odd)
+                               .astype(np.int32)).to(cuda)
+        idx[:2] = torch.tensor([-2 ** 31, 2 ** 31 - 1], dtype=torch.int32)
+        for ix in (idx, idx[1:]):
+            branch = ("int4" if table.data_ptr() % 16 == 0
+                      and ix.data_ptr() % 16 == 0 else "scalar")
+            eq = bool(torch.equal(pgather.pgather(table, ix),
+                                  pgather.pgather_plain(table, ix)))
+            pg_sizes.append(dict(M=m, N=ix.numel(), equal=eq,
+                                 branch=branch))
+    pg_oob = all(r["equal"] for r in pg_sizes)
+    results["pgather"] = dict(
+        pg[65536], shape="M=65536 N=%d" % N,
+        sizes={str(m): v for m, v in pg.items()},
+        out_of_range_equal=pg_oob, branches=pg_sizes)
     for name, r in results.items():
         print("  %s %s: equal=%s max_abs_err=%g kernel %.4f ms (eager "
               "call %.4f ms), plain %.4f ms, library %s, bound %.4f ms "
@@ -296,11 +336,17 @@ def main():
                  r["library_ms"], r["bound_ms"]), flush=True)
         if not r["equal"]:
             raise AssertionError("pgather kernel != plain at M=%d" % m)
-    print("  pgather out-of-range indices (clamped): equal=%s" % pg_oob,
-          flush=True)
+    for r in pg_sizes:
+        print("  pgather M=%d N=%d (out-of-range indices clamped): "
+              "equal=%s, %s branch" % (r["M"], r["N"], r["equal"],
+                                       r["branch"]), flush=True)
     if not pg_oob:
-        raise AssertionError("pgather kernel != plain on out-of-range "
-                             "indices")
+        raise AssertionError("pgather kernel != plain on a branch")
+    for r in flood_extra:
+        print("  floodscan %s: equal=%s" % (r["shape"], r["equal"]),
+              flush=True)
+    if not all(r["equal"] for r in flood_extra):
+        raise AssertionError("floodscan kernel != plain at a tiling shape")
     for name, r in results.items():
         if not r["equal"]:
             raise AssertionError("%s kernel != its plain version" % name)
@@ -387,10 +433,10 @@ def main():
 
     phase("frame: main path (served frames, launches counted)")
     _build.reset_launches()
-    masks, classes = infer(img_full)
+    masks, classes = infer(x32)
     D.RUN_SLOTS = 1024  # a frame whose label grid overflows the run budget
     try:
-        masks_o, classes_o = infer(img_full)
+        masks_o, classes_o = infer(x32)
     finally:
         D.RUN_SLOTS = saved
     torch.cuda.synchronize()
@@ -433,7 +479,7 @@ def main():
         lg[..., :num_classes], lg[..., num_classes:], num_classes, offsets,
         object_merge_factor=1.0, merge_logprob_bias=0.03, relabel=True,
         from_logits=True))
-    frame_ms = median_ms(lambda: infer(img_full))
+    frame_ms = median_ms(lambda: infer(x32))
     print("  frame 1024x2048 -> 512x1024 decode: %d instances; net %.2f ms, "
           "decode %.2f ms, frame %.2f ms (bf16, %s)"
           % (K, net_ms, dec_ms, frame_ms, smi), flush=True)
@@ -487,7 +533,7 @@ def main():
                                       decode_size=(DH, DW),
                                       dtype=torch.bfloat16,
                                       decode_mode="exact")
-    masks_e, classes_e = drive("exact frame", lambda: infer_exact(img_full),
+    masks_e, classes_e = drive("exact frame", lambda: infer_exact(x32),
                                ("tgather",))
     K_e = int((classes_e[0] >= 0).sum())
     if (tuple(masks_e.shape) != (1, 1024, 2048) or K_e < 1
@@ -495,7 +541,7 @@ def main():
         raise AssertionError("malformed exact frame: shape %s, %d classes, "
                              "max id %d" % (tuple(masks_e.shape), K_e,
                                             int(masks_e.max())))
-    exact_frame_ms = median_ms(lambda: infer_exact(img_full), reps=3)
+    exact_frame_ms = median_ms(lambda: infer_exact(x32), reps=3)
     print("  exact frame 1024x2048: %d instances (hier frame %d); %.1f ms "
           "(median of 3, bf16, %s)" % (K_e, K, exact_frame_ms, smi),
           flush=True)
@@ -598,6 +644,8 @@ def main():
                "bf16_max_abs_err": err, "bf16_argmax_agreement": agree,
                "tgather_sizes": results["tgather"]["sizes"],
                "pgather_sizes": results["pgather"]["sizes"],
+               "pgather_branches": results["pgather"]["branches"],
+               "floodscan_shapes": results["floodscan"]["shapes"],
                "exact_check": exact_check, "exact_stats": se_card,
                "exact_decode_ms": exact_ms,
                "exact_decode_cpu_ms": exact_cpu_ms,

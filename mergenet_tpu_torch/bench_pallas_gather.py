@@ -1,4 +1,4 @@
-"""Timing of the shared-memory table lookup on the card: the port of
+"""Timing of the on-chip table lookup on the card: the port of
 `scripts/bench_pallas_gather.py`'s `main`.
 
     python -m mergenet_tpu_torch.bench_pallas_gather

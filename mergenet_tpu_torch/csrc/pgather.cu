@@ -1,5 +1,4 @@
-// Shared-memory table lookup out[n] = table[idx[n]], hand-written for
-// sm_90a.
+// On-chip table lookup out[n] = table[idx[n]], hand-written for sm_90a.
 //
 // Replaces: scripts/bench_pallas_gather.py::pallas_gather (the
 //   pl.pallas_call at bench_pallas_gather.py:38), the TPU prototype that
@@ -12,101 +11,65 @@
 //
 // Bound on this card: bytes.  It reads N indices and writes N values
 // (4 bytes each), plus the table once: 4.2 MB + 4*M bytes at N = 524288,
-// ~1.3 us at 3.35 TB/s.
+// ~1.3 us at 3.35 TB/s.  What costs more is moving table entries on
+// chip: staging the whole table in shared memory per block of indices
+// moves (N / tile) * 4M bytes from L2 (64 MB at M = 65536 in the
+// earlier design), and each random 4-byte read from L2 moves a 32-byte
+// sector.
 //
-// Design: the TPU idea kept — the table lives in fast on-chip memory and
-// every lookup is served from there.  Each block stages the table in
-// dynamic shared memory (above 48 KB only after the opt-in
-// cudaFuncAttributeMaxDynamicSharedMemorySize) and then looks up a tile
-// of ITEMS * blockDim indices held in registers.  A table larger than
-// the 227 KB a block may use (M = 65536 is 256 KB) streams through
-// shared memory in equal chunks: after each chunk lands, every thread
-// takes the values whose indices fall inside it.  The table is re-read
-// from L2 by every block (it is at most a few hundred KB), so device
-// memory sees it about once.
+// Design: the table stays in on-chip memory, as on the TPU; on Hopper
+// that is the 50 MB L2 (and each SM's L1), with no staging at all.
+// Each thread reads one int4 quad of indices, clamps them and reads the
+// four entries with __ldg, then stores the four results as one int4; a
+// scalar tail (and unaligned pointers) take one index per thread.  A
+// persistent design that stages the table once per thread block cluster
+// in distributed shared memory was built and timed against this one on
+// the card and lost at M = 8192 and 65536 (PERF.md): staging moves C
+// slices per cluster and a partner's entry is a slow remote read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 8;  // indices per thread: a tile of 2048 per block
+constexpr int kThreads = 1024;
 
+__device__ __forceinline__ int32_t clampi(int32_t i, int32_t m) {
+  return min(max(i, 0), m - 1);
+}
+
+// `vec`: table, idx and out are 16-byte aligned.
 __global__ void __launch_bounds__(kThreads)
-pgather_kernel(const int32_t* __restrict__ table,
-               const int32_t* __restrict__ idx, int32_t* __restrict__ out,
-               int64_t n, int32_t m, int32_t chunk) {
-  extern __shared__ int32_t stab[];
-  const int64_t tile = (int64_t)kThreads * kItems;
-  for (int64_t base = (int64_t)blockIdx.x * tile; base < n;
-       base += (int64_t)gridDim.x * tile) {
-    int32_t my_idx[kItems];
-    int32_t my_val[kItems];
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      int64_t p = base + (int64_t)k * kThreads + threadIdx.x;
-      int32_t i = p < n ? idx[p] : 0;
-      my_idx[k] = min(max(i, 0), m - 1);  // the contract's clamp
-      my_val[k] = 0;
-    }
-    for (int32_t c0 = 0; c0 < m; c0 += chunk) {
-      int32_t len = min(chunk, m - c0);
-      __syncthreads();  // the previous chunk's readers are done
-      for (int32_t j = threadIdx.x; j < len; j += kThreads)
-        stab[j] = __ldg(table + c0 + j);
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kItems; ++k) {
-        int32_t r = my_idx[k] - c0;
-        if (r >= 0 && r < len) my_val[k] = stab[r];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      int64_t p = base + (int64_t)k * kThreads + threadIdx.x;
-      if (p < n) out[p] = my_val[k];
-    }
+pgather_l2(const int32_t* __restrict__ table,
+           const int32_t* __restrict__ idx, int32_t* __restrict__ out,
+           int64_t n, int32_t m, int vec) {
+  const int64_t nq = vec ? n / 4 : 0;
+  const int64_t gtid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t gstride = (int64_t)gridDim.x * kThreads;
+  for (int64_t q = gtid; q < nq; q += gstride) {
+    int4 v = __ldg(reinterpret_cast<const int4*>(idx) + q);
+    reinterpret_cast<int4*>(out)[q] = make_int4(
+        __ldg(table + clampi(v.x, m)), __ldg(table + clampi(v.y, m)),
+        __ldg(table + clampi(v.z, m)), __ldg(table + clampi(v.w, m)));
   }
+  for (int64_t p = 4 * nq + gtid; p < n; p += gstride)
+    out[p] = __ldg(table + clampi(__ldg(idx + p), m));
 }
 
-int g_smem_optin = -1;   // the device's per-block opt-in limit, bytes
-int g_smem_set = 0;      // dynamic smem the kernel is currently allowed
-
-// Entries of one shared-memory chunk for a table of m entries: the
-// whole table when it fits, else equal chunks that do.
-int pgather_chunk(int m) {
-  if (g_smem_optin < 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&g_smem_optin,
-                           cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  int cap = g_smem_optin / 4;
-  if (cap <= 0) return 0;
-  int nchunks = (m + cap - 1) / cap;
-  return (m + nchunks - 1) / nchunks;
-}
+int aligned16(const void* a) { return (uintptr_t)a % 16 == 0; }
 
 }  // namespace
 
+// out[i] = table[clamp(idx[i], 0, m - 1)] for i < n.
 extern "C" int mn_pgather(const void* table, const void* idx, void* out,
                           int n, int m, void* stream) {
   if (n <= 0) return 0;
-  int chunk = pgather_chunk(m);
-  if (chunk <= 0) return (int)cudaErrorInvalidValue;
-  int smem = chunk * 4;
-  if (smem > 48 * 1024 && smem > g_smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pgather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    g_smem_set = smem;
-  }
-  int64_t tile = (int64_t)kThreads * kItems;
-  int64_t blocks = ((int64_t)n + tile - 1) / tile;
-  if (blocks > 65535) blocks = 65535;
-  pgather_kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)table, (const int32_t*)idx, (int32_t*)out, n, m,
-      chunk);
+  if (m <= 0) return (int)cudaErrorInvalidValue;
+  int vec = aligned16(table) && aligned16(idx) && aligned16(out);
+  int64_t work = vec ? ((int64_t)n + 3) / 4 : n;  // thread iterations
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  if (blocks > 65535 * 16) blocks = 65535 * 16;
+  pgather_l2<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)table, (const int32_t*)idx, (int32_t*)out, n, m, vec);
   return (int)cudaGetLastError();
 }

@@ -29,12 +29,13 @@ def build_e2e_infer(model, num_classes, offsets, decode_size=None,
     """Returns infer(imgs) -> (masks (N, H, W) int32, inst_classes
     (N, M) int32).
 
-    imgs: (N, H, W, 3) uint8 images (numpy or tensor), scaled to [0, 1)
-    by /256 as the reference's bench does.  The net runs at full
-    resolution in `dtype` (None: float32) and emits its maps at
-    `decode_size` (default half resolution); the mask is upsampled back
-    with nearest neighbour.  `model` is moved to `device` (None means
-    CUDA) and `dtype`.
+    imgs: (N, H, W, 3) float images (numpy or tensor), used as given,
+    as the reference takes them: /256 RGB, or the caffe-style
+    mean-subtracted BGR of `ClassDataset(caffe=True)`.  They are cast to
+    `dtype` (None: float32); the net runs at full resolution and emits
+    its maps at `decode_size` (default half resolution); the mask is
+    upsampled back with nearest neighbour.  `model` is moved to
+    `device` (None means CUDA) and `dtype`.
 
     decode_mode: 'hier' (default) decodes the raw logits with
     `decode_hierarchical` (from_logits=True, relabel=True; capacities
@@ -75,13 +76,15 @@ def build_e2e_infer(model, num_classes, offsets, decode_size=None,
     @torch.no_grad()
     def infer(imgs):
         imgs = torch.as_tensor(imgs, device=dev)
-        if imgs.dtype != torch.uint8 or imgs.dim() != 4:
-            raise ValueError("imgs must be (N, H, W, 3) uint8")
+        if (not imgs.is_floating_point() or imgs.dim() != 4
+                or imgs.shape[-1] != 3):
+            raise ValueError("imgs must be (N, H, W, 3) float, got %s %s"
+                             % (imgs.dtype, tuple(imgs.shape)))
         N, H, W = imgs.shape[:3]
         dh, dw = decode_size if decode_size else (H // 2, W // 2)
         masks, classes = [], []
         for n in range(N):
-            x = (imgs[n:n + 1].float() / 256.0).to(dtype or torch.float32)
+            x = imgs[n:n + 1].to(dtype or torch.float32)
             mask, inst_class = decode(x, dh, dw)
             masks.append(upsample_nearest(mask, (H, W)))
             classes.append(inst_class)

@@ -1,11 +1,12 @@
 """Build and bind the CUDA kernels of `csrc/`.
 
-One `nvcc` call compiles every `csrc/*.cu` into one shared library with
-a plain C interface (no PyTorch headers, so the build takes seconds),
-written under `mergenet_tpu_torch/_build/` and named by a hash of the
-sources and flags, so a changed source rebuilds and an unchanged one is
-reused.  The library is loaded with ctypes; every entry point returns
-`cudaGetLastError()` and `check()` raises on a non-zero code.
+One `nvcc -c` per `csrc/*.cu`, all started together, then one link,
+make one shared library with a plain C interface (no PyTorch headers,
+so the build takes seconds), written under `mergenet_tpu_torch/_build/`
+and named by a hash of the sources and flags, so a changed source
+rebuilds and an unchanged one is reused.  The library is loaded with
+ctypes; every entry point returns `cudaGetLastError()` and `check()`
+raises on a non-zero code.
 
 `LAUNCHES` counts kernel launches per wrapper: each wrapper adds one
 where it launches its kernel and nowhere else."""
@@ -26,7 +27,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-Xcompiler", "-fPIC")
 
 #: launches per kernel wrapper (name -> count)
 LAUNCHES = collections.Counter()
@@ -81,24 +82,48 @@ def _nvcc():
 
 
 def build():
-    """Compile csrc/*.cu with one nvcc call unless the library for the
-    current sources exists.  Returns its path."""
-    global build_seconds
+    """Compile csrc/*.cu unless the library for the current sources
+    exists.  Returns its path."""
     out = library_path()
-    if os.path.exists(out):
-        return out
+    if not os.path.exists(out):
+        compile_library(sources(), out)
+    return out
+
+
+def compile_library(srcs, out):
+    """One `nvcc -c` per source in `srcs`, all started together, then
+    one link into the shared library `out` (replaced atomically)."""
+    global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        jobs = []
+        for src in srcs:
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o",
+                os.path.join(work, "lib.so")]
+        failed = []
+        for cmd, obj, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append("%s\n%s" % (" ".join(cmd), err[-4000:]))
+            link.append(obj)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc link failed (%d):\n%s\n%s" % (
+                proc.returncode, " ".join(link), proc.stderr[-4000:]))
+        os.replace(link[link.index("-o") + 1], out)  # atomic
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
-            proc.returncode, " ".join(cmd), proc.stderr[-4000:]))
-    os.replace(tmp, out)  # atomic: concurrent builds agree
     return out
 
 

@@ -1,9 +1,10 @@
-"""Shared-memory table lookup out[n] = table[idx[n]] for an int32 table
-and in-range int32 indices (the contract of the TPU prototype
+"""On-chip table lookup out[n] = table[idx[n]] for an int32 table and
+in-range int32 indices (the contract of the TPU prototype
 `scripts/bench_pallas_gather.py::pallas_gather`; kernel:
-`csrc/pgather.cu`).  An index outside [0, M) is clamped into it, in the
-kernel and in the plain version alike, so no lookup reads out of
-bounds.  Unlike `ops/tgather.py`, negative indices do not wrap."""
+`csrc/pgather.cu`, which serves the table from L2).  An index outside
+[0, M) is clamped into it, in the kernel and in the plain version
+alike, so no lookup reads out of bounds.  Unlike `ops/tgather.py`,
+negative indices do not wrap."""
 
 import torch
 

@@ -39,6 +39,45 @@ def test_floodscan_kernel_matches_plain(cuda_device, H, W, s, t):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H,W,s,t,ccl", [
+    (37, 1000, 3, 2, 3),     # widths that break the 16-byte path
+    (512, 1024, 2, 1, 1),    # one sweep
+    (1500, 40, 1, 2, 2),     # taller than a V strip: row tiles + carry
+    (2100, 9, 1, 3, 2),      # row tiles, t=3, a partial strip
+    (9, 5000, 2, 1, 2),      # wider than an H block: column tiles
+    (3, 5000, 1300, 1, 1),   # stride over half a tile
+    (2500, 24, 1, 700, 2),   # the same down the columns
+    (40, 40, 50, 60, 2),     # strides past the grid: nothing links
+])
+def test_floodscan_kernel_tiles_and_strides(cuda_device, H, W, s, t, ccl):
+    """Shapes that break the kernel's tiling, bit-equal to the plain
+    version with both planes and with one plane None."""
+    rng = np.random.default_rng(H * W + s)
+    h = torch.from_numpy(rng.random((H, W)) < 0.93).to(cuda_device)
+    v = torch.from_numpy(rng.random((H, W)) < 0.93).to(cuda_device)
+    for hh, vv in ((h, v), (h, None), (None, v)):
+        before = _build.LAUNCHES["floodscan"]
+        got = floodscan.flood_scan(hh, vv, s, t, ccl)
+        assert _build.LAUNCHES["floodscan"] == before + 1
+        assert torch.equal(got, floodscan.flood_scan_plain(hh, vv, s, t,
+                                                           ccl))
+
+
+@pytest.mark.cuda
+def test_floodscan_kernel_unaligned_planes(cuda_device):
+    """Link planes that start off a 4-byte boundary take the scalar
+    staging path."""
+    rng = np.random.default_rng(5)
+    H, W = 64, 256
+    flat = torch.from_numpy(rng.random(2 * H * W + 1) < 0.9).to(cuda_device)
+    h = flat[1:1 + H * W].view(H, W)
+    v = flat[1 + H * W:].view(H, W)
+    assert h.data_ptr() % 4 and h.is_contiguous()
+    assert torch.equal(floodscan.flood_scan(h, v, 2, 1, 3),
+                       floodscan.flood_scan_plain(h, v, 2, 1, 3))
+
+
+@pytest.mark.cuda
 def test_absorb_kernel_matches_plain(cuda_device):
     rng = np.random.default_rng(1)
     H, W = 77, 301
@@ -85,10 +124,11 @@ def test_decode_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 8192, 58112, 65536, 200003])
+@pytest.mark.parametrize("m", [1, 8192, 58112, 58113, 65536, 200003,
+                               1 << 20])
 def test_pgather_kernel_matches_plain(cuda_device, m):
-    """In-range indices, plus out-of-range ones that clamp; tables that
-    fit one shared-memory chunk and tables that stream through it."""
+    """The int4 branch: in-range indices, plus out-of-range ones that
+    clamp, N not a multiple of 4, tables from one entry to 4 MB."""
     rng = np.random.default_rng(m)
     table = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, m)
                              .astype(np.int32)).to(cuda_device)
@@ -125,3 +165,19 @@ def test_exact_decode_on_card_matches_cpu(cuda_device):
     assert _build.LAUNCHES["tgather"] == before + 1
     c = decode_on_device(cp, sp, 9, offsets, device="cpu", **kw)
     assert_same_partition(g[0].cpu().numpy(), c[0].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [3001, 65536])
+def test_pgather_kernel_unaligned_matches_plain(cuda_device, m):
+    """Tensors 4 bytes off a 16-byte boundary take the kernel's scalar
+    branch (one index per thread) instead of int4 quads."""
+    rng = np.random.default_rng(m + 1)
+    table = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, m + 1)
+                             .astype(np.int32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(-m, 2 * m, 100004)
+                           .astype(np.int32)).to(cuda_device)
+    for t, i in ((table[1:], idx[1:]), (table[:m], idx[1:]),
+                 (table[1:], idx[:-1])):
+        assert torch.equal(pgather.pgather(t, i),
+                           pgather.pgather_plain(t, i))

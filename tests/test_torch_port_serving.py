@@ -82,11 +82,12 @@ def test_e2e_exact_mode_matches_reference(weights):
     img = _crop("bench_img.png", slice(128, 384), slice(256, 768))[None]
     ref = jax_e2e(get_model(9, 10, "pspfpnet"), 9, OFFSETS,
                   decode_size=(128, 256), decode_mode="exact")
-    rm, rc = ref(weights, jnp.asarray(img.astype(np.float32) / 256.0))
+    x = img.astype(np.float32) / 256.0
+    rm, rc = ref(weights, jnp.asarray(x))
     infer = build_e2e_infer(_port_model(weights), 9, OFFSETS,
                             decode_size=(128, 256), decode_mode="exact",
                             device="cpu")
-    gm, gc = infer(img)
+    gm, gc = infer(x)
     assert gm.shape == (1, 256, 512)
     _assert_same_masks(gm, gc, rm, rc)
     assert int(gm.max()) >= 3
