@@ -10,6 +10,8 @@ card and on the CPU, then drives each path of the port through its user
 entry point, with the launch counts set to 0 just before and read just
 after:
 
+- `decode_hierarchical` at C=19 (fixture 0's classes widened), whose
+  stats do not pack (floodscan, absorb on unpacked stats);
 - the served frame: PSPFPNet-r50 in bf16 on a 1024x2048 image with the
   committed trained weights, logits at 512x1024, `decode_hierarchical`
   (`e2e.build_e2e_infer`; floodscan, absorb, tgather);
@@ -25,9 +27,11 @@ Every check raises; the exit code is 0 only when all phases pass.
 Prints one line per phase, then the card, the kernels line, and last
 `{"ok": true, "device": {...}}`.
 
-Needs a CUDA device and the repository around it (the port and
-tests/fixtures/certification512); imports torch, numpy and the standard
-library besides the port.  Writes nothing outside mergenet_tpu_torch/_build/.
+Needs a CUDA device and the repository around it (the port,
+tests/fixtures/certification512 and the tests' shared data makers in
+tests/torch_port_helpers.py); imports torch, numpy, pytest (through
+those helpers) and the standard library besides the port.  Writes
+nothing outside mergenet_tpu_torch/_build/.
 """
 
 import json
@@ -40,6 +44,9 @@ T0 = time.perf_counter()
 LIMIT_S = 600  # wall-clock guard for the whole run
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(HERE, "tests", "fixtures", "certification512")
+sys.path.insert(0, os.path.join(HERE, "tests"))
+from torch_port_helpers import (FIXTURE_OFFSETS,  # noqa: E402
+                                SPIRAL_OFFSETS, absorb_planes, wide_classes)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the non-tensor
 # 32-bit vector rate, the ceiling of the kernels' integer/float work
@@ -59,6 +66,24 @@ MAX_INSTANCE_DIFF = 1
 FLOOD_SHAPES = ((61, 130, 2, 1, 3), (37, 1000, 3, 2, 3),
                 (512, 1024, 2, 1, 1), (1500, 40, 1, 2, 2),
                 (9, 5000, 2, 1, 2), (3, 5000, 1300, 1, 1))
+# absorb cases held bit-equal beside the served one, packed and unpacked
+# (H, W, offsets, frozen share, quantised log-odds, sizes drawn below),
+# chosen to break the kernel's 16x32 tiles and its halo of |di| <= 16,
+# |dj| <= 32 (five long offsets in one case); sizes mostly over the cap
+# of 64 make whole warps skip; the last has more row tiles than a grid's
+# y dimension holds
+ABSORB_SHAPES = ((77, 301, FIXTURE_OFFSETS, 0.05, True, 120),
+                 (7, 5, FIXTURE_OFFSETS, 0.05, True, 120),
+                 (40, 130, ((3, -7),), 0.05, True, 120),
+                 (70, 260, SPIRAL_OFFSETS, 0.05, True, 120),
+                 (512, 1024, SPIRAL_OFFSETS, 0.05, False, 120),
+                 (1000, 37, FIXTURE_OFFSETS, 0.05, True, 120),
+                 (96, 300, FIXTURE_OFFSETS, 0.05, True, 3000),
+                 (100, 300, ((0, 40), (20, 0), (1, 1), (-30, 5), (5, -50),
+                             (40, 40), (2, -3)), 0.05, True, 120),
+                 (64, 256, FIXTURE_OFFSETS, 1.0, True, 120),
+                 (1100000, 1, ((1, 0), (-20, 0), (300, 0)), 0.05, True,
+                  120))
 # pgather table sizes held bit-equal on out-of-range indices: one
 # entry, the bench's two, odd sizes around 227 KB (what one block's
 # shared memory holds), and tables of 0.8 MB and 4 MB
@@ -125,6 +150,22 @@ def check_decode(tag, mask, ref, names=("card", "cpu")):
                              % (tag, names[0], names[1], frac, n, n_ref))
     return {"exact": exact, "pixels_differing": differ, "agreement": frac,
             "instances": n, "instances_ref": n_ref}
+
+
+def absorb_needed_log_odds(comp2d, packed_own, offsets, size_cap):
+    """The log-odds entries the absorb scan needs on these inputs: those
+    of the edges (p, p + o) that pass every eligibility test but the
+    evidence one (the entry decides the edge in either direction)."""
+    from mergenet_tpu_torch.ops.grid import shift2d
+    size, cf = packed_own >> 5, packed_own & 31
+    n = 0
+    for di, dj in offsets:
+        nbr = shift2d(comp2d, di, dj, -1)
+        ok = ((nbr >= 0) & (nbr != comp2d) & ((cf & 1) == 0)
+              & (shift2d(cf, di, dj, 1) == cf)
+              & (size.minimum(shift2d(size, di, dj, 0)) <= size_cap))
+        n += int(ok.sum())
+    return n
 
 
 def main():
@@ -232,9 +273,7 @@ def main():
     M = 65536
     comp2d, cls_lp, size, frozen, _, runs = D._densify_stats(
         label, cls_lp_pix, M, return_runs=True)
-    argcls = torch.argmax(cls_lp, dim=1).to(torch.int32)
-    packed = ((torch.clamp_max(size, (1 << 26) - 1) << 5) | (argcls << 1)
-              | frozen.to(torch.int32))
+    packed, = D.absorb_stats(cls_lp, size, frozen, True)
     packed_own = D._run_apply(packed, runs[1], comp2d, runs).contiguous()
     comp2d = comp2d.contiguous()
     kp, kq = absorb.absorb_best_edges(comp2d, packed_own, log_odds, offsets,
@@ -242,7 +281,8 @@ def main():
     pp, pq = absorb.absorb_plain(comp2d, packed_own, log_odds, offsets,
                                  1.0, 64)
     torch.cuda.synchronize()
-    b_ms, b_by = bound((4 + 4 + 4 * O + 4 + 4) * N, 2 * O * 24 * N)
+    b_ms, b_by = bound((4 + 4 + 4 + 4) * N + 4 * absorb_needed_log_odds(
+        comp2d, packed_own, offsets, 64), 2 * O * 24 * N)
     results["absorb"] = dict(
         equal=bool(torch.equal(kp, pp) and torch.equal(kq, pq)),
         max_abs_err=max(float((kp - pp).abs().max()),
@@ -253,6 +293,39 @@ def main():
             comp2d, packed_own, log_odds, offsets, 1.0, 64),
             lambda: absorb.absorb_plain(comp2d, packed_own, log_odds,
                                         offsets, 1.0, 64)))
+    # the same scan on unpacked stats (the C > 16 layout), same inputs
+    clsfz_own, size_own = (t[comp2d].contiguous() for t in D.absorb_stats(
+        cls_lp, size, frozen, False))
+    ku, kuq = absorb.absorb_best_edges_unpacked(
+        comp2d, clsfz_own, size_own, log_odds, offsets, 1.0, 64)
+    torch.cuda.synchronize()
+    results["absorb"]["unpacked"] = dict(
+        equal=bool(torch.equal(ku, pp) and torch.equal(kuq, pq)),
+        ms=graph_ms(lambda: absorb.absorb_best_edges_unpacked(
+            comp2d, clsfz_own, size_own, log_odds, offsets, 1.0, 64)))
+
+    absorb_extra = []
+    arng = np.random.default_rng(7)
+    for (ah, aw, aoffs, afroz, aties, asz) in ABSORB_SHAPES:
+        planes = [torch.from_numpy(a).to(cuda) for a in absorb_planes(
+            arng, ah, aw, len(aoffs), frozen=afroz, ties=aties,
+            size_hi=asz)]
+        acomp, asize, aargc, afz, alo = planes
+        apk = (asize << 5) | (aargc << 1) | afz
+        eq_p = all(torch.equal(a, b) for a, b in zip(
+            absorb.absorb_best_edges(acomp, apk, alo, aoffs, 1.0, 64),
+            absorb.absorb_plain(acomp, apk, alo, aoffs, 1.0, 64)))
+        eq_u = all(torch.equal(a, b) for a, b in zip(
+            absorb.absorb_best_edges_unpacked(
+                acomp, (aargc << 1) | afz, asize, alo, aoffs, 1.0, 64),
+            absorb.absorb_plain_unpacked(acomp, aargc, asize, afz == 1,
+                                         alo, aoffs, 1.0, 64)))
+        absorb_extra.append(dict(
+            shape="(%d, %d) O=%d offsets %s frozen %.2f %s, sizes < %d"
+            % (ah, aw, len(aoffs), list(aoffs), afroz,
+               "quantised log-odds" if aties else "gaussian log-odds", asz),
+            equal=eq_p, equal_unpacked=eq_u))
+    results["absorb"]["shapes"] = absorb_extra
 
     tg = {}
     for m in (16384, 65536, 131072, N):  # N: the exact path's tables
@@ -272,8 +345,34 @@ def main():
             **measure(lambda: tgather.table_gather(table, idx),
                       lambda: tgather.table_gather_plain(table, idx),
                       lambda: torch.take(table, idx_c)))
+    # the decoder's own indices: the run-budget overflow branch's
+    # (comp2d_s1 into the packed stats) and relabel_mask's (the final
+    # component grid into the instance ids)
+    comp_f, root_class, is_root = D.decode_hierarchical(
+        cp_d, sp_d, num_classes, offsets, object_merge_factor=1.0,
+        merge_logprob_bias=0.03)
+    ids, _ = D._instance_tables(root_class, is_root)
+    tg_own = {}
+    for name, table, idx in (
+            ("overflow comp2d_s1", packed.contiguous(), comp2d.reshape(-1)),
+            ("relabel label", ids.contiguous(),
+             comp_f.reshape(-1).to(torch.int32).contiguous())):
+        kg = tgather.table_gather(table, idx)
+        pg = tgather.table_gather_plain(table, idx)
+        idx_l = idx.long()  # in range: what torch.take needs
+        torch.cuda.synchronize()
+        m = table.numel()
+        b_ms, b_by = bound(4 * m + 8 * N, 4 * N)
+        tg_own[name] = dict(
+            M=m, equal=bool(torch.equal(kg, pg)),
+            max_abs_err=float((kg.long() - pg.long()).abs().max()),
+            bound_ms=b_ms, bound_by=b_by,
+            **measure(lambda: tgather.table_gather(table, idx),
+                      lambda: tgather.table_gather_plain(table, idx),
+                      lambda: torch.take(table, idx_l)))
     results["tgather"] = dict(tg[65536], shape="M=65536 N=%d" % N,
-                              sizes={str(m): v for m, v in tg.items()})
+                              sizes={str(m): v for m, v in tg.items()},
+                              decoder_indices=tg_own)
 
     pg = {}
     for m in bench_pallas_gather.SIZES:
@@ -329,6 +428,23 @@ def main():
                                 r["library_ms"]), flush=True)
         if not r["equal"]:
             raise AssertionError("tgather kernel != plain at M=%d" % m)
+    for name, r in tg_own.items():
+        print("  tgather on the decoder's %s (M=%d): equal=%s kernel %.4f "
+              "ms plain %.4f ms take %.4f ms" % (
+                  name, r["M"], r["equal"], r["ms"], r["plain_ms"],
+                  r["library_ms"]), flush=True)
+        if not r["equal"]:
+            raise AssertionError("tgather kernel != plain on the %s" % name)
+    r = results["absorb"]["unpacked"]
+    print("  absorb unpacked stats (%d, %d) O=%d: equal=%s kernel %.4f ms"
+          % (H, W, O, r["equal"], r["ms"]), flush=True)
+    if not r["equal"]:
+        raise AssertionError("absorb kernel != plain on unpacked stats")
+    for r in absorb_extra:
+        print("  absorb %s: equal=%s unpacked equal=%s"
+              % (r["shape"], r["equal"], r["equal_unpacked"]), flush=True)
+    if not all(r["equal"] and r["equal_unpacked"] for r in absorb_extra):
+        raise AssertionError("absorb kernel != plain at a tiling shape")
     for m, r in pg.items():
         print("  pgather M=%d: equal=%s kernel %.4f ms (eager call %.4f "
               "ms) plain %.4f ms table[idx] %.4f ms bound %.4f ms"
@@ -350,6 +466,23 @@ def main():
     for name, r in results.items():
         if not r["equal"]:
             raise AssertionError("%s kernel != its plain version" % name)
+
+    paths = {}
+
+    def drive(name, fn, needs):
+        """Run one path with the launch counts set to 0 just before and
+        read just after; every kernel in `needs` must have launched."""
+        _build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        paths[name] = dict(_build.LAUNCHES)
+        print("  launches on the %s path: %s" % (name, paths[name]),
+              flush=True)
+        for k in needs:
+            if paths[name].get(k, 0) < 1:
+                raise AssertionError("the %s path launched no %s"
+                                     % (name, k))
+        return out
 
     # ---- 4. decode: card vs CPU on fixture 0 ----
     phase("decode fixture 0: card vs cpu")
@@ -394,6 +527,21 @@ def main():
           % (decode_launches, overflow_launches), flush=True)
     if overflow_launches.get("tgather", 0) < 1:
         raise AssertionError("the overflow decode launched no tgather")
+
+    phase("decode fixture 0 with its classes widened to C=19: card vs cpu")
+    cp19 = wide_classes(cp)
+    m19, c19, st19 = drive("hier decode C=19", lambda: D.decode_hierarchical(
+        torch.from_numpy(cp19).to(cuda), sp_d, 19, offsets, **kw),
+        ("floodscan", "absorb"))
+    m19_cpu, c19_cpu, st19_cpu = D.decode_hierarchical(
+        cp19, sp, 19, offsets, device="cpu", **kw)
+    c19_check = check_decode("C=19", m19.cpu().numpy(), m19_cpu.numpy())
+    print("  C=19 stats card %s cpu %s; instance classes card %s"
+          % ({k: int(v) for k, v in st19.items()},
+             {k: int(v) for k, v in st19_cpu.items()},
+             c19[:int(m19.max())].tolist()), flush=True)
+    if int(c19.max()) < 16:  # the classes must not fit 4 bits
+        raise AssertionError("C=19 decode found no class id past 15")
 
     # ---- 5. the served frame ----
     phase("frame: load weights, f32 vs bf16 net")
@@ -484,22 +632,7 @@ def main():
           "decode %.2f ms, frame %.2f ms (bf16, %s)"
           % (K, net_ms, dec_ms, frame_ms, smi), flush=True)
 
-    paths = {"hier frame": main_launches}
-
-    def drive(name, fn, needs):
-        """Run one path with the launch counts set to 0 just before and
-        read just after; every kernel in `needs` must have launched."""
-        _build.reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        paths[name] = dict(_build.LAUNCHES)
-        print("  launches on the %s path: %s" % (name, paths[name]),
-              flush=True)
-        for k in needs:
-            if paths[name].get(k, 0) < 1:
-                raise AssertionError("the %s path launched no %s"
-                                     % (name, k))
-        return out
+    paths["hier frame"] = main_launches
 
     # ---- 6. exact mode ----
     phase("exact decode fixture 0 (run_segmentation_device): card vs cpu")
@@ -646,6 +779,11 @@ def main():
                "pgather_sizes": results["pgather"]["sizes"],
                "pgather_branches": results["pgather"]["branches"],
                "floodscan_shapes": results["floodscan"]["shapes"],
+               "absorb_shapes": results["absorb"]["shapes"],
+               "absorb_unpacked": results["absorb"]["unpacked"],
+               "tgather_decoder_indices":
+                   results["tgather"]["decoder_indices"],
+               "c19_check": c19_check,
                "exact_check": exact_check, "exact_stats": se_card,
                "exact_decode_ms": exact_ms,
                "exact_decode_cpu_ms": exact_cpu_ms,

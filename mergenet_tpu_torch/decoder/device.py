@@ -396,6 +396,17 @@ def _run_fill_cols(ends_val, H, W):
     return filled.flip(1).t()
 
 
+def absorb_stats(cls_lp, size, frozen, pack_stats):
+    """Stage 2's per-component stats in the absorb kernel's layouts:
+    (size<<5 | argcls<<1 | frozen,) with sizes clamped to 2^26 - 1 when
+    `pack_stats` (C <= 16), else (argcls<<1 | frozen, size)."""
+    argcls = torch.argmax(cls_lp, dim=1).to(I32)
+    clsfz = (argcls << 1) | frozen.to(I32)
+    if pack_stats:
+        return ((torch.clamp_max(size, (1 << 26) - 1) << 5) | clsfz,)
+    return clsfz, size
+
+
 def _run_apply(table, comp_c, comp2d_s1, runs, vals_c=None, table_fn=None):
     """table[comp2d_s1] at run granularity; the per-pixel table gather
     (the tgather kernel on CUDA) when the grid exceeded the run budget.
@@ -938,17 +949,15 @@ def decode_hierarchical(class_probs, sameness_probs, num_classes, offsets,
         comp_cur_c = comp_c if tparent is None else tparent[comp_c]
         if tparent is not None:
             comp2d = _run_apply(tparent, comp_c, comp2d_s1, runs)
-        argcls = torch.argmax(cls_lp, dim=1).to(I32)
+        stats = absorb_stats(cls_lp, size, frozen, pack_stats)
         if pack_stats:
-            packed = ((torch.clamp_max(size, (1 << 26) - 1) << 5)
-                      | (argcls << 1) | frozen.to(I32))
-            packed_own = _run_apply(packed, comp_cur_c, comp2d_s1, runs)
+            packed_own = _run_apply(stats[0], comp_cur_c, comp2d_s1, runs)
             best_pri, best_partner = _absorb.absorb_best_edges(
                 comp2d.contiguous(), packed_own.contiguous(), log_odds,
                 offsets, theta, absorb_size_cap)
         else:
-            best_pri, best_partner = _absorb.absorb_plain_unpacked(
-                comp2d, argcls[comp2d], size[comp2d], frozen[comp2d],
+            best_pri, best_partner = _absorb.absorb_best_edges_unpacked(
+                comp2d.contiguous(), *(t[comp2d].contiguous() for t in stats),
                 log_odds, offsets, theta, absorb_size_cap)
         bp = best_pri.reshape(-1)
         own_f = comp2d.reshape(-1)

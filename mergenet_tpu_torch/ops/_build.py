@@ -40,6 +40,10 @@ _SIGNATURES = {
     # num_offsets, theta, size_cap, stream
     "mn_absorb_best_edges": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _F, _I,
                              _P),
+    # comp, clsfz, size, log_odds, best_pri, best_partner, H, W, offsets,
+    # num_offsets, theta, size_cap, stream
+    "mn_absorb_best_edges_unpacked": (_P, _P, _P, _P, _P, _P, _I, _I, _P,
+                                      _I, _F, _I, _P),
     # table, idx, out, n, m, stream
     "mn_table_gather": (_P, _P, _P, _I, _I, _P),
     # table, idx, out, n, m, stream

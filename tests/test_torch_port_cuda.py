@@ -19,8 +19,9 @@ from mergenet_tpu_torch.decoder.device import (decode_hierarchical,
                                                run_segmentation_device)
 from mergenet_tpu_torch.io import load_offsets, load_probs
 from mergenet_tpu_torch.ops import _build, absorb, floodscan, pgather, tgather
-from torch_port_helpers import (FIX512, SERVE_KW, assert_same_partition,
-                                cuda_device)  # noqa: F401
+from torch_port_helpers import (FIX512, SERVE_KW, SPIRAL_OFFSETS,
+                                absorb_planes, assert_same_partition,
+                                cuda_device, wide_classes)  # noqa: F401
 
 OFFSETS = ((1, 0), (0, 2), (-2, -1), (2, -4), (5, 5), (-9, 7), (-9, -16),
            (28, -10), (9, 48), (-80, 0))
@@ -94,6 +95,116 @@ def test_absorb_kernel_matches_plain(cuda_device):
     pp, pq = absorb.absorb_plain(*args, OFFSETS, 1.0, 64)
     assert _build.LAUNCHES["absorb"] == before + 1
     assert torch.equal(kp, pp) and torch.equal(kq, pq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,offsets,frozen,ties,size_hi,cap", [
+    (77, 301, OFFSETS, 0.05, True, 120, 64),     # H, W off the 16x32 tile
+    (7, 5, OFFSETS, 0.05, True, 120, 64),        # smaller than the halo
+    (40, 130, ((3, -7),), 0.05, True, 120, 64),  # O=1
+    (70, 260, SPIRAL_OFFSETS, 0.05, True, 120, 64),  # (-21, 0) is long
+    (512, 1024, OFFSETS, 0.05, False, 120, 64),  # the served shape
+    (96, 300, OFFSETS, 0.05, True, 3000, 64),    # warps that skip
+    (100, 300, ((0, 40), (20, 0), (1, 1), (-30, 5), (5, -50), (40, 40),
+                (2, -3)), 0.05, True, 120, 64),  # 5 long offsets
+    (64, 256, OFFSETS, 1.0, True, 120, 64),      # every pixel frozen
+    (60, 200, OFFSETS, 0.05, True, 1 << 26, (1 << 26) - 1),  # cap, packed max
+    (60, 200, OFFSETS, 0.05, True, 120, -1),     # nothing under the cap
+    # more row or column tiles than a grid's y dimension holds (65535)
+    (1_100_000, 1, ((1, 0), (-20, 0), (300, 0)), 0.05, True, 120, 64),
+    (1, 2_100_000, ((0, 1), (0, -40), (0, 3)), 0.05, True, 120, 64),
+])
+def test_absorb_kernel_tiles_and_layouts(cuda_device, H, W, offsets, frozen,
+                                         ties, size_hi, cap):
+    """Shapes and offsets that break the kernel's tiling, bit-equal to
+    the plain version in the packed and the unpacked (C > 16) layout."""
+    rng = np.random.default_rng(H * W)
+    comp, size, argc, froz, lo = absorb_planes(rng, H, W, len(offsets),
+                                                frozen=frozen, ties=ties,
+                                                size_hi=size_hi)
+    t = {k: torch.from_numpy(a).to(cuda_device) for k, a in dict(
+        comp=comp, size=size, argc=argc, froz=froz, lo=lo).items()}
+    packed = (t["size"] << 5) | (t["argc"] << 1) | t["froz"]
+    before = _build.LAUNCHES["absorb"]
+    kp, kq = absorb.absorb_best_edges(t["comp"], packed, t["lo"], offsets,
+                                      1.0, cap)
+    pp, pq = absorb.absorb_plain(t["comp"], packed, t["lo"], offsets, 1.0,
+                                 cap)
+    assert torch.equal(kp, pp) and torch.equal(kq, pq)
+    up, uq = absorb.absorb_best_edges_unpacked(
+        t["comp"], (t["argc"] << 1) | t["froz"], t["size"], t["lo"],
+        offsets, 1.0, cap)
+    pp, pq = absorb.absorb_plain_unpacked(t["comp"], t["argc"], t["size"],
+                                          t["froz"] == 1, t["lo"], offsets,
+                                          1.0, cap)
+    assert torch.equal(up, pp) and torch.equal(uq, pq)
+    assert _build.LAUNCHES["absorb"] == before + 2
+
+
+@pytest.mark.cuda
+def test_absorb_kernel_unpacked_wide_classes(cuda_device):
+    """The unpacked layout at 19 classes with sizes past the packed
+    layout's 2^26 clamp, on planes 4 bytes off a 16-byte boundary (the
+    kernel's 4-byte staging)."""
+    rng = np.random.default_rng(19)
+    H, W = 90, 300
+    comp, size, argc, froz, lo = absorb_planes(rng, H, W, len(OFFSETS),
+                                                classes=19)
+    size[::7] += 1 << 27
+    t = {k: torch.from_numpy(np.concatenate([a.ravel()[:1], a.ravel()]))
+         .to(cuda_device)[1:].view(a.shape)
+         for k, a in dict(comp=comp, size=size, argc=argc, froz=froz,
+                          lo=lo).items()}
+    assert t["comp"].data_ptr() % 16
+    got = absorb.absorb_best_edges_unpacked(
+        t["comp"], ((t["argc"] << 1) | t["froz"]).contiguous(), t["size"],
+        t["lo"], OFFSETS, 0.5, 1 << 28)
+    ref = absorb.absorb_plain_unpacked(t["comp"], t["argc"], t["size"],
+                                       t["froz"] == 1, t["lo"], OFFSETS,
+                                       0.5, 1 << 28)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_decode_c19_launches_absorb(cuda_device):
+    """At C=19 the stats do not pack: stage 2 launches the absorb kernel
+    on unpacked stats, and the card's decode equals the CPU's."""
+    cp, sp = load_probs(FIX512, 1)
+    cp, sp = wide_classes(cp[256:, :512]), sp[256:, :512]
+    offsets = load_offsets(FIX512)
+    kw = dict(SERVE_KW, relabel=True, return_stats=True)
+    before = _build.LAUNCHES["absorb"]
+    gm, gc, gs = decode_hierarchical(cp, sp, 19, offsets, **kw)
+    assert _build.LAUNCHES["absorb"] > before
+    cm, cc, cs = decode_hierarchical(cp, sp, 19, offsets, device="cpu",
+                                     **kw)
+    assert int(cm.max()) >= 2 and int(cc.max()) >= 16
+    assert_same_partition(gm.cpu().numpy(), cm.numpy(), gc.cpu().numpy(),
+                          cc.numpy())
+    assert {k: int(v) for k, v in gs.items()} == \
+        {k: int(v) for k, v in cs.items()}
+
+
+@pytest.mark.cuda
+def test_tgather_kernel_row_coherent_indices(cuda_device):
+    """Indices as the decoder gives them: runs of one component id along
+    each row, a few out of range, into a table of 65536."""
+    rng = np.random.default_rng(3)
+    H, W, m = 512, 1024, 65536
+    starts = np.sort(rng.choice(W, (H, 40)), axis=1)
+    runs = np.zeros((H, W), np.int64)
+    runs[np.arange(H)[:, None], starts] = 1
+    idx = (np.cumsum(runs.ravel()) * 7 % (m + 200) - 100).astype(np.int32)
+    table = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, m)
+                             .astype(np.int32)).to(cuda_device)
+    idx = torch.from_numpy(idx.reshape(H, W)).to(cuda_device)
+    before = _build.LAUNCHES["tgather"]
+    got = tgather.table_gather(table, idx)
+    assert _build.LAUNCHES["tgather"] == before + 1
+    assert torch.equal(got, tgather.table_gather_plain(table, idx))
+    assert torch.equal(tgather.table_gather(table, idx.reshape(-1)[1:]),
+                       tgather.table_gather_plain(table,
+                                                  idx.reshape(-1)[1:]))
 
 
 @pytest.mark.cuda

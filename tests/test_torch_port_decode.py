@@ -58,3 +58,24 @@ def test_decode_component_output_without_relabel_with_prune():
     assert_same_partition(gc, rc)
     np.testing.assert_array_equal(gr[gc], rr[rc])
     np.testing.assert_array_equal(gi[gc], ri[rc])
+
+
+@pytest.mark.parametrize("settings", [
+    dict(SERVE_KW, den_mode="product", object_merge_factor=0.1),
+    dict(SERVE_KW, same_different_bias=0.2, do_prune=True),
+], ids=["product-omf0.1", "bias0.2-prune"])
+def test_decode_matches_reference_at_recipe_settings(settings):
+    """Decoder options the recipes use, around the absorption scan: the
+    product flood density with the recipes' small object_merge_factor,
+    and a same/different bias with pruning (egs/coco)."""
+    cp, sp = load_probs(FIX512, 2)
+    cp, sp = cp[:256, :512], sp[:256, :512]
+    offsets = load_offsets(FIX512)
+    kw = dict(settings, relabel=True, return_stats=True)
+    rm, rc, rs = jax_decode(jnp.asarray(cp), jnp.asarray(sp), 9, offsets,
+                            **kw)
+    gm, gc, gs = decode_hierarchical(cp, sp, 9, offsets, device="cpu", **kw)
+    assert_same_partition(gm.numpy(), np.asarray(rm), gc.numpy(),
+                          np.asarray(rc))
+    assert int(gm.max()) == int(np.asarray(rm).max()) >= 1
+    assert _stats(gs) == _stats(rs)

@@ -2,7 +2,8 @@
 
 floodscan: `decoder/device.py::_scan_sweeps` vs the plain PyTorch
 segmented scan and the CPU wrapper; absorb: the reference's stage-2 jnp
-plane loop vs the plain PyTorch loop; tgather: the Pallas
+plane loop vs the plain PyTorch loop and the CPU wrappers, on packed
+and on unpacked (C > 16) stats; tgather: the Pallas
 `table_gather(interpret=True)` vs the plain wrap/clamp gather.  All
 integer or compare/select work: required exactly equal.
 
@@ -19,6 +20,7 @@ from mergenet_tpu.decoder import device as D
 from mergenet_tpu.ops.pallas.tgather import table_gather as jax_tgather
 from mergenet_tpu_torch.decoder import device as T
 from mergenet_tpu_torch.ops import _build, absorb, floodscan, tgather
+from torch_port_helpers import absorb_planes
 
 OFFSETS = ((1, 0), (0, 2), (-2, -1), (2, -4), (5, 5), (-9, 7), (-9, -16),
            (28, -10), (9, 48), (-80, 0))
@@ -58,11 +60,17 @@ def test_flood_scan_matches_scan_sweeps(H, W, s, t, has_h, has_v, density):
 
 def _jnp_absorb(comp2d, packed_own, log_odds, offsets, theta, size_cap):
     """The stage-2 plane loop of decode_hierarchical
-    (decoder/device.py:1716-1747), on the reference's own helpers."""
+    (decoder/device.py:1716-1747) on packed stats."""
+    return _jnp_absorb_unpacked(
+        comp2d, (packed_own >> 1) & 15, packed_own >> 5,
+        (packed_own & 1) == 1, log_odds, offsets, theta, size_cap)
+
+
+def _jnp_absorb_unpacked(comp2d, arg_own, size_own, froz_own, log_odds,
+                         offsets, theta, size_cap):
+    """The same loop on unpacked stats, as the reference runs it when
+    they do not pack (C > 16), on the reference's own helpers."""
     H, W = comp2d.shape
-    arg_own = (packed_own >> 1) & 15
-    size_own = packed_own >> 5
-    froz_own = (packed_own & 1) == 1
     best_pri = jnp.full((H, W), D.NEG_INF, jnp.float32)
     best_partner = jnp.full((H, W), -1, jnp.int32)
     for oi, (di, dj) in enumerate(offsets):
@@ -89,32 +97,59 @@ def _jnp_absorb(comp2d, packed_own, log_odds, offsets, theta, size_cap):
 
 
 def _absorb_inputs(seed, H, W, O):
-    rng = np.random.default_rng(seed)
-    comp = rng.integers(0, 60, (H, W)).astype(np.int32)
-    size = rng.integers(1, 120, (H, W)).astype(np.int32)
-    argc = rng.integers(0, 4, (H, W)).astype(np.int32)
-    froz = (rng.random((H, W)) < 0.05).astype(np.int32)
-    packed = (size << 5) | (argc << 1) | froz
-    # quantised log-odds: ties in priority are common, as on trained maps
-    lo = (np.round(rng.standard_normal((O, H, W)) * 4) / 2).astype(
-        np.float32)
-    return comp, packed, lo
+    comp, size, argc, froz, lo = absorb_planes(np.random.default_rng(seed),
+                                               H, W, O, comp_lo=0)
+    return comp, (size << 5) | (argc << 1) | froz, lo
 
 
-@pytest.mark.parametrize("H,W,theta,cap", [(96, 100, 1.0, 64),
-                                           (40, 64, 0.5, 30)])
-def test_absorb_matches_jnp_loop(H, W, theta, cap):
-    comp, packed, lo = _absorb_inputs(H, H, W, len(OFFSETS))
+@pytest.mark.parametrize("H,W,theta,cap,offsets,eligible", [
+    pytest.param(96, 100, 1.0, 64, OFFSETS, 100, id="96-100-1.0-64"),
+    pytest.param(40, 64, 0.5, 30, OFFSETS, 100, id="40-64-0.5-30"),
+    # smaller than the largest offsets (and than the kernel's halo)
+    pytest.param(7, 5, 1.0, 64, OFFSETS, 0, id="7-5-1.0-64"),
+    pytest.param(40, 64, 0.5, 30, ((3, -7),), 19, id="40-64-0.5-30-O1"),
+])
+def test_absorb_matches_jnp_loop(H, W, theta, cap, offsets, eligible):
+    comp, packed, lo = _absorb_inputs(H, H, W, len(offsets))
     rp, rq = jax.jit(_jnp_absorb, static_argnums=(3, 4, 5))(
-        jnp.asarray(comp), jnp.asarray(packed), jnp.asarray(lo), OFFSETS,
+        jnp.asarray(comp), jnp.asarray(packed), jnp.asarray(lo), offsets,
         theta, cap)
     args = (torch.from_numpy(comp), torch.from_numpy(packed),
-            torch.from_numpy(lo), OFFSETS, theta, cap)
+            torch.from_numpy(lo), offsets, theta, cap)
     for pp, pq in (absorb.absorb_plain(*args),
                    absorb.absorb_best_edges(*args)):
         np.testing.assert_array_equal(pp.numpy(), np.asarray(rp))
         np.testing.assert_array_equal(pq.numpy(), np.asarray(rq))
-    assert (np.asarray(rp) > -1e38).sum() > 100  # eligible edges exist
+    assert (np.asarray(rp) > -1e38).sum() > eligible  # eligible edges exist
+
+
+@pytest.mark.parametrize("H,W", [(64, 96), (9, 6)])
+def test_absorb_unpacked_matches_jnp_loop(H, W):
+    """The unpacked layout (C > 16): 19 classes and sizes past the packed
+    layout's 2^26 clamp, through the CPU wrapper and its plain version,
+    against the reference's jnp plane loop."""
+    comp, size, argc, froz, lo = absorb_planes(
+        np.random.default_rng(H + 19), H, W, len(OFFSETS), classes=19,
+        comp_lo=0)
+    size[::3] += 1 << 27
+    cap = (1 << 27) + 60
+    rp, rq = jax.jit(_jnp_absorb_unpacked, static_argnums=(5, 6, 7))(
+        jnp.asarray(comp), jnp.asarray(argc), jnp.asarray(size),
+        jnp.asarray(froz == 1), jnp.asarray(lo), OFFSETS, 1.0, cap)
+    t = {k: torch.from_numpy(a) for k, a in dict(
+        comp=comp, size=size, argc=argc, froz=froz, lo=lo).items()}
+    before = dict(_build.LAUNCHES)
+    for pp, pq in (
+            absorb.absorb_plain_unpacked(t["comp"], t["argc"], t["size"],
+                                         t["froz"] == 1, t["lo"], OFFSETS,
+                                         1.0, cap),
+            absorb.absorb_best_edges_unpacked(
+                t["comp"], (t["argc"] << 1) | t["froz"], t["size"],
+                t["lo"], OFFSETS, 1.0, cap)):
+        np.testing.assert_array_equal(pp.numpy(), np.asarray(rp))
+        np.testing.assert_array_equal(pq.numpy(), np.asarray(rq))
+    assert dict(_build.LAUNCHES) == before  # CPU tensors: no launch
+    assert (np.asarray(rp) > -1e38).sum() > 0  # eligible edges exist
 
 
 @pytest.mark.parametrize("m", [128, 8192, 65536])

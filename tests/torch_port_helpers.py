@@ -1,5 +1,7 @@
-"""Shared pieces of the `test_torch_port_*` tests: fixture paths,
-label-grid comparison up to renaming, and the card check."""
+"""Shared pieces of the `test_torch_port_*` tests and `chip_smoke.py`:
+fixture paths, offset sets, random absorb planes, class widening,
+label-grid comparison up to renaming, and the card check.  Imports no
+JAX: the card-only tests and `chip_smoke.py` run where there is none."""
 
 import os
 
@@ -13,6 +15,41 @@ FIX19 = os.path.join(os.path.dirname(__file__), "fixtures",
 
 #: decode_hierarchical arguments of the served frame (bench.py)
 SERVE_KW = dict(object_merge_factor=1.0, merge_logprob_bias=0.03)
+
+#: the fixture's offsets (certification512/offsets.npy) and the survey's
+#: default spiral (core/config.py), which reach past absorb's halo
+FIXTURE_OFFSETS = ((1, 0), (0, 2), (-2, -1), (2, -4), (5, 5), (-9, 7),
+                   (-9, -16), (28, -10), (9, 48), (-80, 0))
+SPIRAL_OFFSETS = ((1, 0), (0, 1), (-2, -1), (1, -2), (3, 2), (-4, 3),
+                  (-4, -7), (10, -4), (3, 15), (-21, 0))
+
+
+def absorb_planes(rng, H, W, O, classes=4, frozen=0.05, ties=True,
+                  size_hi=120, comp_lo=-2):
+    """Random stage-2 planes of the absorb scan, drawn from `rng` in this
+    order: comp ids in [comp_lo, 60) (some negative by default), size in
+    [1, size_hi), argcls in [0, classes), frozen (int32, each pixel with
+    probability `frozen`), log_odds (O, H, W) float32, quantised to
+    halves when `ties` (ties in priority, as on trained maps)."""
+    comp = rng.integers(comp_lo, 60, (H, W)).astype(np.int32)
+    size = rng.integers(1, size_hi, (H, W)).astype(np.int32)
+    argc = rng.integers(0, classes, (H, W)).astype(np.int32)
+    froz = (rng.random((H, W)) < frozen).astype(np.int32)
+    lo = rng.standard_normal((O, H, W)) * 4
+    lo = (np.round(lo) / 2 if ties else lo).astype(np.float32)
+    return comp, size, argc, froz, lo
+
+
+def wide_classes(cp, C=19):
+    """Class probabilities widened to C classes: background stays class
+    0, class c >= 1 becomes C - c (past the packed stats' 4 class bits
+    for c <= C - 16), and the new classes get a small probability."""
+    k = cp.shape[-1]
+    wide = np.full(cp.shape[:-1] + (C,), 1e-6, np.float32)
+    scaled = cp * np.float32(1 - (C - k) * 1e-6)
+    wide[..., 0] = scaled[..., 0]
+    wide[..., C - np.arange(1, k)] = scaled[..., 1:]
+    return wide
 
 
 def assert_same_partition(a, b, classes_a=None, classes_b=None):
