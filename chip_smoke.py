@@ -18,6 +18,10 @@ after:
 - the exact-mode decode of the fixture (`run_segmentation_device`) and
   the served frame in exact mode (`build_e2e_infer(decode_mode="exact")`;
   tgather);
+- the certification: hier and exact decodes of the 8 certification512
+  fixtures on the card (floodscan, absorb, tgather), scored with the
+  port's COCOeval and gated against the committed C++ greedy masks, and
+  the port's C++ greedy decoder (`decoder/csegment.py`) on fixture 0;
 - the serving pipeline with its overflow fallback
   (`serving.build_serving_pipeline`) on a batch of two served frames;
 - the gather bench (`python -m mergenet_tpu_torch.bench_pallas_gather`;
@@ -46,7 +50,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(HERE, "tests", "fixtures", "certification512")
 sys.path.insert(0, os.path.join(HERE, "tests"))
 from torch_port_helpers import (FIXTURE_OFFSETS,  # noqa: E402
-                                SPIRAL_OFFSETS, absorb_planes, wide_classes)
+                                JAX_AP, SERVE_KW, SPIRAL_OFFSETS,
+                                absorb_planes, coco_stats, wide_classes)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the non-tensor
 # 32-bit vector rate, the ceiling of the kernels' integer/float work
@@ -94,6 +99,20 @@ PGATHER_SIZES = (1, 8192, 58112, 58113, 65536, 200003, 1 << 20)
 # through ResNet-50's 53 convs
 BF16_MAX_ABS = 1.0
 BF16_ARGMAX_AGREEMENT = 0.99
+
+# certification gates (tests/test_certification_512.py:97-98 and the
+# exact bound of its test_summary_multiseed_gate): AP and AP50 below the
+# C++ greedy's by at most these; each card AP within CERT_JAX_AP_TOL of
+# the JAX package's figure on the CPU (`JAX_AP`), as the card's decode
+# may differ from the CPU's on 0.1% of pixels
+CERT_AP_MARGIN = 0.01
+CERT_AP50_MARGIN = 0.03
+CERT_JAX_AP_TOL = 0.005
+# the port's C++ greedy on fixture 0 against the committed
+# cpp_mask_0.npz, which was decoded from the float32 maps before they
+# were stored as float16 (the JAX package's C++ differs on 1.40%)
+CPP_CLASSES_0 = [1, 1, 5, 4]
+CPP_MAX_DIFFER = 0.02
 
 
 def phase(name):
@@ -166,6 +185,118 @@ def absorb_needed_log_odds(comp2d, packed_own, offsets, size_cap):
               & (size.minimum(shift2d(size, di, dj, 0)) <= size_cap))
         n += int(ok.sum())
     return n
+
+
+def certify(drive):
+    """The certification phase: hier (`decode_hierarchical` +
+    `relabel_mask`, zero overflow required) and exact
+    (`run_segmentation_device`) decodes of the 8 certification512
+    fixtures on the card with the launches counted, both scored with the
+    port's COCOeval under procedure (a), every image of val_ann.json, and
+    (b), the 8 fixture images only, and gated against the committed C++
+    greedy masks and the JAX package's figures; then the port's C++
+    greedy on fixture 0 on the host."""
+    import numpy as np
+    import torch
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.data import COCO
+    from mergenet_tpu_torch.decoder import csegment
+    from mergenet_tpu_torch.decoder import device as D
+    from mergenet_tpu_torch.e2e import masks_to_results
+
+    offsets = io.load_offsets(FIX)
+    C = 9
+    cats = list(range(C))  # category id = class id, as the fixtures' GT
+    ids = list(range(8))
+    res = {"hier": [], "exact": [], "cpp": []}
+    overflow = {}
+
+    def decode_all():
+        for i in ids:
+            cp, sp = io.load_probs(FIX, i)
+            comp, rc, ii, st = D.decode_hierarchical(
+                torch.from_numpy(cp).cuda(), torch.from_numpy(sp).cuda(), C,
+                offsets, return_stats=True, **SERVE_KW)
+            overflow[i] = {k: int(st[k]) for k in
+                           ("edges_dropped", "pairs_dropped", "n_frozen")}
+            mask, ic = D.relabel_mask(comp, rc, ii)
+            res["hier"] += masks_to_results(mask[None], ic[None], [i], cats)
+            em, ec = D.run_segmentation_device(
+                np.moveaxis(cp, -1, 0), np.moveaxis(sp, -1, 0), C, offsets,
+                **SERVE_KW)
+            res["exact"] += masks_to_results(
+                em[None], np.asarray(ec + [-1], np.int32)[None], [i], cats)
+            with np.load(os.path.join(FIX, "cpp_mask_%d.npz" % i)) as cm:
+                res["cpp"] += masks_to_results(cm["mask"][None],
+                                               cm["classes"][None], [i], cats)
+
+    t0 = time.perf_counter()
+    drive("certification", decode_all, ("floodscan", "absorb", "tgather"))
+    decode_s = time.perf_counter() - t0
+    print("  8 fixtures decoded on the card (hier + exact) in %.2f s; "
+          "overflow %s" % (decode_s, overflow), flush=True)
+    if any(v for o in overflow.values() for v in o.values()):
+        raise AssertionError("hier decode overflowed: %s" % overflow)
+
+    t0 = time.perf_counter()
+    coco = COCO(os.path.join(FIX, "val_ann.json"))
+    ap = {proc: {name: tuple(coco_stats(coco, r, None if proc == "a"
+                                        else ids)[:2])
+                 for name, r in res.items()} for proc in ("a", "b")}
+    score_s = time.perf_counter() - t0
+    for proc, title in (("a", "every image of val_ann.json"),
+                        ("b", "the 8 fixture images")):
+        for name, (a, a50) in ap[proc].items():
+            j, j50 = JAX_AP[proc][name]
+            print("  (%s) %s: %-5s AP %.4f AP50 %.4f | JAX (CPU) AP %.4f "
+                  "AP50 %.4f" % (proc, title, name, a, a50, j, j50),
+                  flush=True)
+    gates = [("(a) hier AP50 >= C++ AP50 - %.2f" % CERT_AP50_MARGIN,
+              ap["a"]["hier"][1] >= ap["a"]["cpp"][1] - CERT_AP50_MARGIN)]
+    for proc in ("a", "b"):
+        for name in ("hier", "exact"):
+            gates.append(("(%s) %s AP >= C++ AP - %.2f" % (
+                proc, name, CERT_AP_MARGIN),
+                ap[proc][name][0] >= ap[proc]["cpp"][0] - CERT_AP_MARGIN))
+        for name in ("hier", "exact", "cpp"):
+            gates.append(("(%s) %s AP within %.3f of JAX's" % (
+                proc, name, CERT_JAX_AP_TOL),
+                abs(ap[proc][name][0] - JAX_AP[proc][name][0])
+                <= CERT_JAX_AP_TOL))
+    failed = [name for name, ok in gates if not ok]
+    print("  gates: %d passed, failed: %s" % (len(gates) - len(failed),
+                                             failed or "none"), flush=True)
+    if failed:
+        raise AssertionError("certification gates failed: %s" % failed)
+
+    t0 = time.perf_counter()
+    stale = csegment.library_path()
+    if os.path.exists(stale):  # measure the real build every run
+        os.unlink(stale)
+    csegment.build()
+    build_s = time.perf_counter() - t0
+    cp, sp = io.load_probs(FIX, 0)
+    t0 = time.perf_counter()
+    cm_mask, cm_cls = csegment.run_segmentation(
+        np.moveaxis(cp, -1, 0), np.moveaxis(sp, -1, 0), C, offsets,
+        same_different_bias=0.0, **SERVE_KW)
+    cpp_s = time.perf_counter() - t0
+    with np.load(os.path.join(FIX, "cpp_mask_0.npz")) as cm:
+        ref_mask = cm["mask"]
+    differ = int((cm_mask != ref_mask).sum())
+    print("  C++ greedy (decoder/csegment.py) on fixture 0 (512x1024): g++ "
+          "build %.2f s, decode %.2f s on the host; classes %s; %d of %d "
+          "pixels differ from cpp_mask_0.npz (limit %.0f%%)" % (
+              build_s, cpp_s, cm_cls, differ, ref_mask.size,
+              100 * CPP_MAX_DIFFER), flush=True)
+    if cm_cls != CPP_CLASSES_0 or differ > CPP_MAX_DIFFER * ref_mask.size:
+        raise AssertionError("C++ greedy on fixture 0: classes %s (want %s),"
+                             " %d pixels differ" % (cm_cls, CPP_CLASSES_0,
+                                                    differ))
+    return {"ap": ap, "overflow": overflow, "decode_s": decode_s,
+            "score_s": score_s, "cpp_build_s": build_s,
+            "cpp_decode_s": cpp_s, "cpp_pixels_differing": differ,
+            "cpp_classes": cm_cls}
 
 
 def main():
@@ -661,6 +792,14 @@ def main():
           "of 3; first call %.1f ms), cpu %.1f ms" % (
               exact_ms, exact_first_ms, exact_cpu_ms), flush=True)
 
+    phase("certification: hier and exact decodes of the 8 certification512 "
+          "fixtures, mask-AP against the C++ greedy")
+    t = time.perf_counter()
+    cert = certify(drive)
+    cert["phase_s"] = time.perf_counter() - t
+    print("  certification phase %.2f s (%s)" % (cert["phase_s"], smi),
+          flush=True)
+
     phase("exact frame (build_e2e_infer decode_mode='exact')")
     infer_exact = e2e.build_e2e_infer(net16, num_classes, offsets,
                                       decode_size=(DH, DW),
@@ -792,7 +931,8 @@ def main():
                "serve_overflow": sov, "serve_tight_overflow": tov,
                "serve_2frames_ms": serve_ms,
                "serve_2frames_fallback_ms": serve_tight_ms,
-               "gather_bench": bench_rows, "launches_by_path": paths,
+               "gather_bench": bench_rows, "certification": cert,
+               "launches_by_path": paths,
                "total_s": time.perf_counter() - T0}
     print("summary " + json.dumps(summary), flush=True)
     print(smi, flush=True)

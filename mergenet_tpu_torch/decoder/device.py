@@ -24,8 +24,12 @@ the reference's on the CPU: float running sums reproduce XLA's blocked
 cumsum (`_cumsum_f32`), compensated scans reproduce
 `lax.associative_scan`'s pairing (`_associative_scan`), and per-segment
 float sums run in index order (`_scatter_add`; on CUDA the sort-based
-deterministic `index_put_`, never atomics).  Integer packing stays
-int32 (torch's cumsum and sum would widen to int64 unless told)."""
+deterministic `index_put_`, never atomics).  The logs of probabilities
+and the priorities' multiply-adds follow XLA's CPU arithmetic (its
+Cephes log and log1p, its fused multiply-add: `_log32`, `_log1p32`,
+`_fma32`) in IEEE operations, so the card, the CPU and the reference
+get the same bits.  Integer packing stays int32 (torch's cumsum and sum
+would widen to int64 unless told)."""
 
 import numpy as np
 import torch
@@ -200,17 +204,87 @@ def _sort(keys, *payloads, dim=-1):
 
 # ------------------------------------------------------------ pre/flood
 
+def _fma32(a, b, c):
+    """float32 a * b + c with one rounding: the fused multiply-add that
+    the reference's XLA program computes on the CPU, whose backend
+    contracts a product followed by a sum.  `a` is a float32 tensor, `b`
+    and `c` float32 tensors or Python floats holding float32 values.
+    The product is exact in float64, so only the sum rounds (to float64,
+    then to float32; no input tried rounded differently from a true
+    fused multiply-add), and the card gets the same bits as the CPU."""
+    if not torch.is_tensor(b) and b == 1.0:  # a * 1 is exact
+        return a + c
+    b = b.double() if torch.is_tensor(b) else b
+    c = c.double() if torch.is_tensor(c) else c
+    return (a.double() * b + c).float()
+
+
+def _f32(v):
+    return float(np.float32(v))
+
+
+#: the Cephes coefficients of XLA's float32 log on the CPU
+_LOG_P = tuple(_f32(v) for v in (
+    7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1, -1.2420140846E-1,
+    1.4249322787E-1, -1.6668057665E-1, 2.0000714765E-1, -2.4999993993E-1,
+    3.3333331174E-1))
+_LOG_Q1, _LOG_Q2 = _f32(-2.12194440e-4), _f32(0.693359375)
+#: the Cephes rational approximation of XLA's float32 log1p for
+#: |x| < sqrt(2) - 1 (numerator and denominator, highest degree first)
+_LOG1P_NUM = tuple(_f32(v) for v in (
+    4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+    6.5787325942061044846969E0, 2.9911919328553073277375E1,
+    6.0949667980987787057556E1, 5.7112963590585538103336E1,
+    2.0039553499201281259648E1))
+_LOG1P_DEN = tuple(_f32(v) for v in (
+    1., 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+    2.2176239823732856465394E2, 3.0909872225312059774938E2,
+    2.1642788614495947685003E2, 6.0118660497603843919306E1))
+
+
 def _log32(x):
-    """float32 log, correctly rounded (taken in float64): the same bits
-    on the CPU and the card, whose float32 logs differ by an ulp in
-    places — enough to flip near-tie singleton hooks of the exact mode's
-    rolls round."""
-    return torch.log(x.double()).float()
+    """float32 log of positive finite x, computed as the reference's XLA
+    program computes it on the CPU: Cephes range reduction to a mantissa
+    in [sqrt(1/2), sqrt(2)) and a degree-8 polynomial with XLA's fused
+    multiply-adds (`_fma32`).  Every step is an IEEE float32 or float64
+    operation, so the CPU and the card get the same bits, and they equal
+    the reference's (torch's float32 log differs from both by an ulp in
+    places, enough to flip near-tie merges of the exact mode)."""
+    x = torch.clamp_min(x.to(F32), _f32(1.17549435e-38))  # smallest normal
+    bits = x.view(I32)
+    e = ((bits >> 23) - 127).to(F32) + 1.0
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(F32)  # in [0.5, 1)
+    small = m < _f32(0.707106781186547524)
+    e = e - small.to(F32)
+    t = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    x2 = t * t
+    x3 = x2 * t
+    p = _LOG_P
+    y = _fma32(_fma32(t, p[0], p[1]), t, p[2])
+    y1 = _fma32(_fma32(t, p[3], p[4]), t, p[5])
+    y2 = _fma32(_fma32(t, p[6], p[7]), t, p[8])
+    y = _fma32(_fma32(y, x3, y1), x3, y2)
+    y = _fma32(y, x3, _LOG_Q1 * e)
+    return (t - 0.5 * x2) + y + _LOG_Q2 * e
 
 
 def _log1p32(x):
-    """float32 log1p, correctly rounded like `_log32`."""
-    return torch.log1p(x.double()).float()
+    """float32 log1p of x > -1 as the reference's XLA program computes
+    it on the CPU: `_log32(1 + x)`, or for |x| < sqrt(2) - 1 the Cephes
+    rational approximation, Horner steps fused (`_fma32`)."""
+    x = x.to(F32)
+
+    def horner(coeffs):
+        poly = torch.full_like(x, coeffs[0])
+        for c in coeffs[1:]:
+            poly = _fma32(poly, x, c)
+        return poly
+
+    x2 = x * x
+    small = x + (-0.5 * x2 + (x * x2) * (horner(_LOG1P_NUM)
+                                         / horner(_LOG1P_DEN)))
+    return torch.where(x.abs() < _f32(0.41421356237309504880), small,
+                       _log32(1.0 + x))
 
 
 def _log_domain(class_probs, sameness_probs, same_different_bias,
@@ -295,7 +369,7 @@ def _flood_links(argmax_pix, log_odds, offsets, den_mode, omf, bias,
         if den_mode == "sum":
             pri = oml * omf / 2.0 + bias
         else:
-            pri = oml * omf + bias
+            pri = _fma32(oml, omf, bias)
         ok = same_cls & (pri >= 0.0) & (oml > ccl_margin)
         if di > 0:
             ok = ok & (rows < H - di)
@@ -829,9 +903,9 @@ def _pair_rounds(plo, phi, pair_oml, stats, cls_lp, size, frozen, M2, P,
         n1 = size[lo_c].to(F32)
         n2 = size[hi_c].to(F32)
         if den_mode == "sum":
-            pri = (agg * omf + cdl) / (n1 + n2) + bias
+            pri = _fma32(agg, omf, cdl) / (n1 + n2) + bias
         else:
-            pri = (agg * omf + cdl + bias) / (n1 * n2)
+            pri = (_fma32(agg, omf, cdl) + bias) / (n1 * n2)
         pri = torch.where(dead, NEG_INF, pri)
 
         hi_up = (n2 > n1) | ((n2 == n1) & (hi_c > lo_c))
@@ -1101,9 +1175,9 @@ def boruvka_rolls_round(class_probs, sameness_probs, num_classes, offsets,
             dim=-1).values
         cdl = joint - best_pix - _shift2d(best_pix, di, dj, 0.0)
         if den_mode == "sum":
-            pri = (oml * omf + cdl) / 2.0 + bias
+            pri = _fma32(oml, omf, cdl) / 2.0 + bias
         else:
-            pri = oml * omf + cdl + bias
+            pri = _fma32(oml, omf, cdl) + bias
         partner_fwd = _shift2d(pix_id, di, dj, -1)
         consider(torch.where(partner_fwd >= 0, pri, NEG_INF), partner_fwd)
         pri_bwd = _shift2d(pri, -di, -dj, NEG_INF)
@@ -1299,9 +1373,9 @@ def decode_on_device(class_probs, sameness_probs, num_classes, offsets,
         n1 = size[lo_c].to(F32)
         n2 = size[hi_c].to(F32)
         if den_mode == "sum":
-            pri = (pair_oml * omf + cdl) / (n1 + n2) + bias
+            pri = _fma32(pair_oml, omf, cdl) / (n1 + n2) + bias
         else:
-            pri = (pair_oml * omf + cdl + bias) / (n1 * n2)
+            pri = (_fma32(pair_oml, omf, cdl) + bias) / (n1 * n2)
         dead = lo_s >= M
         pri = torch.where(dead, NEG_INF, pri)
 

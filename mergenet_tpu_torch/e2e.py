@@ -1,9 +1,11 @@
 """End-to-end frame: net forward + merge decode in memory, no host round
 trip between them (`mergenet_tpu/utils/e2e.py` is the reference)."""
 
+import numpy as np
 import torch
 
 from . import resolve_device
+from .data import rle as maskUtils
 from .decoder.device import (decode_hierarchical, decode_on_device,
                              decode_on_device_staged, relabel_mask)
 from .models import logits_at, probs_at
@@ -91,3 +93,29 @@ def build_e2e_infer(model, num_classes, offsets, decode_size=None,
         return torch.stack(masks), torch.stack(classes)
 
     return infer
+
+
+def masks_to_results(masks, inst_classes, image_ids, catIds):
+    """Convert a decoded batch into COCO result dicts (host side).
+
+    masks: (N, H, W) instance ids 1..K (0 = background); inst_classes:
+    (N, M) class per instance id - 1, -1 past the last; numpy arrays or
+    tensors on any device.  Instance k of image b becomes one result with
+    category catIds[class] and score 1."""
+    masks, inst_classes = (t.cpu().numpy() if torch.is_tensor(t)
+                           else np.asarray(t) for t in (masks, inst_classes))
+    out = []
+    for b in range(masks.shape[0]):
+        mask = masks[b]
+        for i in range(1, int(mask.max()) + 1):
+            cls = int(inst_classes[b][i - 1])
+            if cls < 0:
+                continue
+            m = (mask == i).astype(np.uint8)
+            out.append({
+                "image_id": int(image_ids[b]),
+                "score": 1,
+                "category_id": catIds[cls],
+                "segmentation": maskUtils.encode(np.asfortranarray(m)),
+            })
+    return out

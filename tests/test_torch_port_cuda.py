@@ -19,9 +19,10 @@ from mergenet_tpu_torch.decoder.device import (decode_hierarchical,
                                                run_segmentation_device)
 from mergenet_tpu_torch.io import load_offsets, load_probs
 from mergenet_tpu_torch.ops import _build, absorb, floodscan, pgather, tgather
-from torch_port_helpers import (FIX512, SERVE_KW, SPIRAL_OFFSETS,
-                                absorb_planes, assert_same_partition,
-                                cuda_device, wide_classes)  # noqa: F401
+from torch_port_helpers import (FIX512, JAX_AP, SERVE_KW,  # noqa: F401
+                                SPIRAL_OFFSETS, absorb_planes,
+                                assert_same_partition, coco_stats, cuda_device,
+                                wide_classes)
 
 OFFSETS = ((1, 0), (0, 2), (-2, -1), (2, -4), (5, 5), (-9, 7), (-9, -16),
            (28, -10), (9, 48), (-80, 0))
@@ -292,3 +293,32 @@ def test_pgather_kernel_unaligned_matches_plain(cuda_device, m):
                  (table[1:], idx[:-1])):
         assert torch.equal(pgather.pgather(t, i),
                            pgather.pgather_plain(t, i))
+
+
+@pytest.mark.cuda
+def test_hier_certification_of_two_fixtures_on_card(cuda_device):
+    """Fixtures 0 and 1 decoded on the card (decode_hierarchical +
+    relabel_mask at the served settings): no overflow, and their mask-AP
+    under the reference's procedure (every image of val_ann.json) within
+    0.005 of the JAX package's on the CPU; then the port's C++ greedy
+    builds into mergenet_tpu_torch/_build/."""
+    import os
+    from mergenet_tpu_torch.data import COCO
+    from mergenet_tpu_torch.decoder import csegment
+    from mergenet_tpu_torch.decoder.device import relabel_mask
+    from mergenet_tpu_torch.e2e import masks_to_results
+    offsets = load_offsets(FIX512)
+    results = []
+    for i in (0, 1):
+        cp, sp = load_probs(FIX512, i)
+        comp, rc, ii, st = decode_hierarchical(cp, sp, 9, offsets,
+                                               return_stats=True, **SERVE_KW)
+        assert comp.device.type == "cuda"
+        for k in ("edges_dropped", "pairs_dropped", "n_frozen"):
+            assert int(st[k]) == 0, (i, k, int(st[k]))
+        mask, ic = relabel_mask(comp, rc, ii)
+        results += masks_to_results(mask[None], ic[None], [i], list(range(9)))
+    ap = coco_stats(COCO(os.path.join(FIX512, "val_ann.json")), results)[0]
+    assert abs(ap - JAX_AP["a01"]["hier"][0]) <= 0.005, ap
+    path = csegment.build()
+    assert os.path.dirname(path) == _build.BUILD_DIR and os.path.exists(path)

@@ -286,3 +286,65 @@ def test_pair_phase_2key_matches_reference(edge_slots):
             {k: int(v) for k, v in rst.items()}
     tm = gtm.numpy()
     assert tm[0] == tm[1] and (tm[2] == tm[1]) == (edge_slots is None)
+
+
+#: 256x512 crop of fixture 2 (the crop of the hier decode's recipe-settings
+#: test in test_torch_port_decode.py)
+CP2, SP2 = (a[:256, :512] for a in load_probs(FIX512, 2))
+
+
+@pytest.mark.parametrize("settings", [
+    dict(SERVE_KW, den_mode="product", object_merge_factor=0.1),
+    dict(SERVE_KW, same_different_bias=0.2, do_prune=True),
+], ids=["product-omf0.1", "bias0.2-prune"])
+@pytest.mark.parametrize("decoder", ["exact", "capped"])
+def test_exact_and_capped_match_reference_at_recipe_settings(decoder,
+                                                             settings):
+    """Decoder options the recipes use (egs/cityscape: the product
+    density with a small object_merge_factor; egs/coco: a same/different
+    bias with pruning) through the exact mode and the capped single-pass
+    decode."""
+    if decoder == "exact":
+        cp, sp = (np.moveaxis(a, -1, 0) for a in (CP2, SP2))
+        kw = dict(settings, mode="exact", return_stats=True)
+        rm, rc, rs = J.run_segmentation_device(cp, sp, 9, OFFSETS, **kw)
+        gm, gc, gs = T.run_segmentation_device(cp, sp, 9, OFFSETS,
+                                               device="cpu", **kw)
+        assert_same_partition(gm, rm, gc, rc)
+        assert gc == rc and gs == rs and len(gc) >= 1
+    else:
+        kw = dict(settings, max_components=32768, max_edges=300000)
+        ref = J.decode_on_device(jnp.asarray(CP2), jnp.asarray(SP2), 9,
+                                 OFFSETS, **kw)
+        got = T.decode_on_device(CP2, SP2, 9, OFFSETS, device="cpu", **kw)
+        _assert_same_components(got, ref)
+
+
+def test_log_domain_and_fma_are_bit_equal_to_reference():
+    """The probabilities' logs (`_log32`, `_log1p32`) and the priorities'
+    multiply-add (`_fma32`) give XLA's CPU bits: on fixture 0's maps
+    through `_log_domain`, on inputs spread over the float32 range, and
+    on random products at object_merge_factor 0.1."""
+    import jax
+    gl, go = T._log_domain(torch.from_numpy(CP0), torch.from_numpy(SP0),
+                           0.0)
+    rl, ro = jax.jit(lambda c, s: J._log_domain(c, s, 0.0))(
+        jnp.asarray(CP0), jnp.asarray(SP0))
+    np.testing.assert_array_equal(gl.numpy(), np.asarray(rl))
+    np.testing.assert_array_equal(go.numpy(), np.asarray(ro))
+    rng = np.random.default_rng(0)
+    x = np.concatenate([np.logspace(-37.9, 38, 200001, dtype=np.float32),
+                        rng.random(200000, dtype=np.float32)])
+    x = x[np.isfinite(x) & (x > 0)]
+    np.testing.assert_array_equal(T._log32(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jax.jit(jnp.log)(x)))
+    y = np.concatenate([-x[x < 1], x[x < 1e30]])
+    np.testing.assert_array_equal(T._log1p32(torch.from_numpy(y)).numpy(),
+                                  np.asarray(jax.jit(jnp.log1p)(y)))
+    a, c = (rng.standard_normal((2, 100000)) * 8).astype(np.float32)
+    omf = np.float32(0.1)
+    ref = np.asarray(jax.jit(lambda a, c: a * omf + c)(a, c))
+    got = T._fma32(torch.from_numpy(a), float(omf), torch.from_numpy(c))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert (torch.from_numpy(a) * float(omf) + torch.from_numpy(c)
+            != torch.from_numpy(ref)).any()  # two roundings differ

@@ -25,8 +25,15 @@ SCRIPT = textwrap.dedent("""
     for m in mods:
         importlib.import_module(m)
     for m in ("serving", "bench_pallas_gather", "ops.pgather", "e2e",
-              "decoder.device"):
+              "decoder.device", "core.offsets", "core.config", "core.types",
+              "data.rle", "data.coco", "data.cocoeval", "decoder.segmenter",
+              "decoder.csegment"):
         assert "mergenet_tpu_torch." + m in mods, m
+    from mergenet_tpu_torch.decoder import csegment
+    from mergenet_tpu_torch.e2e import masks_to_results
+    assert csegment._lib is None  # nothing is built at import
+    masks_to_results(np.ones((1, 4, 4), np.int32), np.ones((1, 1), np.int32),
+                     [0], [0, 1])
     import chip_smoke
     from mergenet_tpu_torch.decoder.device import decode_hierarchical
     from mergenet_tpu_torch.models import PSPFPNet, logits_at
@@ -55,7 +62,7 @@ def test_port_imports_without_jax_flax_cv2_pil():
         [sys.executable, "-c", SCRIPT % (BLOCKED, BLOCKED)], cwd=ROOT,
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split("IMPORTED")[1]) >= 15
+    assert int(proc.stdout.split("IMPORTED")[1]) >= 25
 
 
 def test_no_reference_imports_in_port_sources():
@@ -65,7 +72,7 @@ def test_no_reference_imports_in_port_sources():
         re.escape(b) for b in BLOCKED), re.M)
     files = list((ROOT / "mergenet_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 17
+    assert len(files) >= 27
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, (f, hits)

@@ -95,3 +95,37 @@ def cuda_device():
                     "mode (on the card: MERGENET_TPU_TESTS=1 python -m "
                     "pytest tests/test_torch_port_cuda.py -m cuda)")
     return torch.device("cuda")
+
+
+#: the 8 certification512 fixtures' mask-AP and AP50 as the JAX package
+#: scores them on the CPU (served settings `SERVE_KW`; hier:
+#: decode_hierarchical + relabel_mask, exact: run_segmentation_device's
+#: default mode, cpp: the committed cpp_mask_*.npz), under procedure (a),
+#: the reference's (every image of val_ann.json), and (b), the 8 fixture
+#: images only; "a01" is hier over fixtures 0 and 1 under (a)
+JAX_AP = {"a": {"hier": (0.09725247524752474, 0.11262376237623763),
+                "exact": (0.09628712871287129, 0.11633663366336634),
+                "cpp": (0.0927062706270627, 0.11633663366336634)},
+          "b": {"hier": (0.7429826732673268, 0.8675742574257426),
+                "exact": (0.7390057755775578, 0.8985148514851485),
+                "cpp": (0.7088778877887789, 0.8985148514851485)},
+          "a01": {"hier": (0.02524752475247525, 0.028465346534653466)}}
+
+
+def coco_stats(coco, results, img_ids=None, cocoeval=None):
+    """The 12 COCOeval('segm') stats of COCO `results` against the
+    ground truth `coco` (stats[0] is AP, stats[1] AP50), with `cocoeval`
+    (default: the port's COCOeval); `img_ids` replaces the evaluated
+    image ids (None: every image of the ground truth)."""
+    import contextlib
+    import io
+    if cocoeval is None:
+        from mergenet_tpu_torch.data.cocoeval import COCOeval as cocoeval
+    with contextlib.redirect_stdout(io.StringIO()):
+        E = cocoeval(coco, coco.loadRes(results), "segm")
+        if img_ids is not None:
+            E.params.imgIds = list(img_ids)
+        E.evaluate()
+        E.accumulate()
+        E.summarize()
+    return [float(v) for v in E.stats]
