@@ -25,17 +25,24 @@ after:
 - the serving pipeline with its overflow fallback
   (`serving.build_serving_pipeline`) on a batch of two served frames;
 - the gather bench (`python -m mergenet_tpu_torch.bench_pallas_gather`;
-  pgather).
+  pgather);
+- training: PSPFPNet-r50 at the recipe's configuration (batch 16,
+  768x768 crops of the committed val frames, alpha 20), 10 compact
+  steps through `train_compact` in float32 and in bf16 (no decode
+  kernel may launch), after one step held against the CPU's, and a
+  checkpoint saved, loaded and resumed on the card.
 
 Every check raises; the exit code is 0 only when all phases pass.
-Prints one line per phase, then the card, the kernels line, and last
-`{"ok": true, "device": {...}}`.
+Prints one line per phase, a `train {...}` line (step ms, images/s,
+peak memory, FLOPs per step, share of the bf16 peak), the summary, then
+the card, the kernels line, and last `{"ok": true, "device": {...}}`.
 
 Needs a CUDA device and the repository around it (the port,
 tests/fixtures/certification512 and the tests' shared data makers in
 tests/torch_port_helpers.py); imports torch, numpy, pytest (through
 those helpers) and the standard library besides the port.  Writes
-nothing outside mergenet_tpu_torch/_build/.
+nothing outside mergenet_tpu_torch/_build/ (the train phase's
+checkpoints go to _build/train_ckpt and are removed).
 """
 
 import json
@@ -113,6 +120,32 @@ CERT_JAX_AP_TOL = 0.005
 # were stored as float16 (the JAX package's C++ differs on 1.40%)
 CPP_CLASSES_0 = [1, 1, 5, 4]
 CPP_MAX_DIFFER = 0.02
+
+
+# train phase (PSPFPNet-r50 at the recipe's configuration,
+# egs/cityscape/local/run_pspfpnet_crop.sh: batch 16, 768x768 crops,
+# --alpha 20, SGD lr 0.01, momentum 0.9, nesterov, wd 1e-4)
+TRAIN_BATCH, TRAIN_CROP, TRAIN_ALPHA = 16, 768, 20.0
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_TIMED = 10, 3, 5
+H100_BF16_DENSE_FLOPS = 989e12  # NVIDIA data sheet, SXM, dense
+H100_FP32_FLOPS = 67e12  # non-tensor float32
+# card against CPU, one step at batch 2, 256x256 crops, TF32 off: the
+# loss; the running statistics (forward only); each parameter's update
+# in relative L2 norm: a ResNet-50's train-mode gradient moves ~4-6% per
+# leaf between two float32 summation orders (the port's float32 step
+# against its float64 one, tests/test_torch_port_train.py)
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_STATS_TOL = 1e-3
+TRAIN_UPDATE_RTOL = 0.1  # measured: 0.018 at most (PERF.md)
+TRAIN_BF16_LOSS_RTOL = 0.02
+# a resumed step against the uninterrupted one on the card: the forward
+# (loss, running statistics, eval logits) is deterministic and must be
+# bit-equal; the backward's atomics (bilinear resize, cuDNN weight
+# gradients) reorder float sums between runs (measured: 1.7e-5, 2.15e-4
+# and 4.0e-4 in three runs).  The same step resumed with its momentum
+# buffers dropped must land above the limit: the script plants that
+# fault on a second loaded state and fails if the gate does not see it
+TRAIN_RESUME_UPDATE_RTOL = 2e-3
 
 
 def phase(name):
@@ -297,6 +330,308 @@ def certify(drive):
             "score_s": score_s, "cpp_build_s": build_s,
             "cpp_decode_s": cpp_s, "cpp_pixels_differing": differ,
             "cpp_classes": cm_cls}
+
+
+def train_data(rng):
+    """The train phase's compact batch: the 4 committed val images
+    (certification512/bench_img*.png, the first four sorted val ids, as
+    scripts/export_bench_checkpoint.py took them) and their instance
+    masks from val_ann.json (first annotation wins, ids in annotation
+    order, classes through [0] + category ids), each upscaled x2
+    (nearest) to 1024x2048; TRAIN_BATCH crops of TRAIN_CROP^2 at
+    positions drawn from `rng`, frame i % 4 for crop i."""
+    import numpy as np
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.data import COCO
+
+    coco = COCO(os.path.join(FIX, "val_ann.json"))
+    ids = sorted(coco.imgs)[:4]
+    cat_ids = [0] + coco.getCatIds()
+    frames = []
+    for k, img_id in enumerate(ids):
+        info = coco.imgs[img_id]
+        img = io.read_png_rgb(os.path.join(
+            FIX, "bench_img.png" if k == 0 else "bench_img_%d.png" % k))
+        if (ids != [0, 1, 2, 3] or img.shape != (512, 1024, 3)
+                or (info["height"], info["width"]) != (512, 1024)):
+            raise AssertionError("val image %s: ids %s, png %s, json %sx%s"
+                                 % (img_id, ids, img.shape, info["height"],
+                                    info["width"]))
+        mask = np.zeros((512, 1024), np.int32)
+        table = np.zeros(256, np.int32)
+        for i, ann in enumerate(coco.loadAnns(coco.getAnnIds(
+                imgIds=img_id)), 1):
+            m = coco.annToMask(ann).astype(bool)
+            mask[m & (mask == 0)] = i
+            table[i] = cat_ids.index(ann["category_id"])
+        up = lambda a: np.repeat(np.repeat(a, 2, 0), 2, 1)  # noqa: E731
+        frames.append((up(img), up(mask), table))
+    S = TRAIN_CROP
+    batch = {"image": [], "mask": [], "object_class": []}
+    for i in range(TRAIN_BATCH):
+        img, mask, table = frames[i % 4]
+        r = int(rng.integers(0, img.shape[0] - S + 1))
+        c = int(rng.integers(0, img.shape[1] - S + 1))
+        batch["image"].append(img[r:r + S, c:c + S])
+        batch["mask"].append(mask[r:r + S, c:c + S])
+        batch["object_class"].append(table)
+    return {k: np.stack(v) for k, v in batch.items()}, \
+        [len(coco.getAnnIds(imgIds=i)) for i in ids]
+
+
+def _update_rel(new, new_ref, old):
+    """Per parameter: |(new - old) - (new_ref - old)| / |new_ref - old|
+    (L2), for parameters whose reference update is not ~0 (a conv bias
+    before batch norm has an exact-zero gradient)."""
+    out = {}
+    for k, o in old.items():
+        du = new_ref[k].detach().double().cpu() - o
+        if float(du.abs().max()) < 1e-6:
+            continue
+        out[k] = float((new[k].detach().double().cpu() - o - du).norm()
+                       / du.norm())
+    return out
+
+
+def train_phase(drive, paths, smi, kernel_names):
+    """The train phase on PSPFPNet-r50 at the recipe's configuration
+    (TRAIN_* above), from the committed trained weights (float32 params):
+    one compact step on the card against the CPU (batch 2, 256^2, TF32
+    off), then `build_train_step_compact` through `train_compact`, 10
+    steps on one fixed batch 16 x 768^2 in float32 (TF32 off) and in
+    bf16 (float32 params and statistics), launches counted (none of the
+    decode's kernels may run; `paths` gets their zero counts under
+    "train"), the loss falling in both; step ms,
+    images/s, peak memory, FLOPs per step (FlopCounterMode) and the
+    share of the card's dense bf16 peak; then checkpoints saved and
+    loaded on the card, the eval logits and one more step against the
+    uninterrupted run."""
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.convert import load_flax_weights
+    from mergenet_tpu_torch.core import generate_offsets
+    from mergenet_tpu_torch.models import PSPFPNet, logits_at
+    from mergenet_tpu_torch.parallel import train as T
+    from mergenet_tpu_torch.utils.checkpoint import load_checkpoint
+    from mergenet_tpu_torch.utils.train_utils import (save_checkpoint,
+                                                      train_compact)
+
+    C = 9
+    offsets = generate_offsets(80, 10)  # the recipe's (train.py, mode all)
+    if tuple(offsets) != io.load_offsets(FIX):
+        raise AssertionError("generate_offsets(80, 10) %s != the trained "
+                             "weights' offsets" % (offsets,))
+    params, stats = io.load_bench_checkpoint(os.path.join(FIX,
+                                                          "bench_ckpt.npz"))
+    nout = C + len(offsets)
+    tx = T.make_optimizer(lr=0.01, momentum=0.9, nesterov=True,
+                          weight_decay=1e-4)
+
+    def new_state(device, dtype=None):
+        state = T.create_train_state(PSPFPNet(nout, dtype=dtype), tx,
+                                     device=device)
+        load_flax_weights(state.model, params, stats)  # float32 params
+        return state
+
+    t_phase = time.perf_counter()
+    batch, n_anns = train_data(np.random.default_rng(0))
+    out = {"config": {"model": "PSPFPNet-r50", "classes": C,
+                      "offsets": [list(o) for o in offsets],
+                      "batch": TRAIN_BATCH, "crop": TRAIN_CROP,
+                      "alpha": TRAIN_ALPHA, "lr": 0.01, "momentum": 0.9,
+                      "nesterov": True, "weight_decay": 1e-4,
+                      "instances_per_frame": n_anns}}
+
+    # -- card against CPU, one step at batch 2, 256^2 -------------------
+    small = {k: v[:2, :256, :256] if v.ndim > 2 else v[:2]
+             for k, v in batch.items()}
+    step = T.build_train_step_compact(C, offsets, alpha=TRAIN_ALPHA)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        state = new_state(dev)
+        old = {k: v.detach().double().cpu().clone()
+               for k, v in state.model.named_parameters()}
+        state, m = step(state, *(small[k] for k in ("image", "mask",
+                                                    "object_class")))
+        res[dev] = (float(m["loss"]), dict(state.model.named_parameters()),
+                    {k: v.cpu() for k, v in state.model.named_buffers()})
+        del state
+    (l_cpu, p_cpu, b_cpu), (l_card, p_card, b_card) = res["cpu"], res["cuda"]
+    upd = _update_rel(p_card, p_cpu, old)
+    worst = max(upd, key=upd.get)
+    stats_ok = all(torch.allclose(b_card[k], b_cpu[k], rtol=TRAIN_STATS_TOL,
+                                  atol=TRAIN_STATS_TOL) for k in b_cpu)
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    out["card_vs_cpu"] = {
+        "loss_card": l_card, "loss_cpu": l_cpu, "loss_rel": loss_rel,
+        "update_rel_median": statistics.median(upd.values()),
+        "update_rel_max": upd[worst], "update_rel_worst": worst,
+        "stats_max_abs": max(float((b_card[k] - b_cpu[k]).abs().max())
+                             for k in b_cpu)}
+    print("  card vs cpu, one step at batch 2, 256^2 (TF32 off): loss "
+          "%.6f / %.6f (rel %.2e, limit %.0e); updates rel L2 median "
+          "%.4f, max %.4f at %s (limit %.2f); running stats max abs %.2e "
+          "(limit %.0e + %.0e rel)" % (
+              l_card, l_cpu, loss_rel, TRAIN_LOSS_RTOL,
+              out["card_vs_cpu"]["update_rel_median"], upd[worst], worst,
+              TRAIN_UPDATE_RTOL, out["card_vs_cpu"]["stats_max_abs"],
+              TRAIN_STATS_TOL, TRAIN_STATS_TOL), flush=True)
+    if (loss_rel > TRAIN_LOSS_RTOL or upd[worst] > TRAIN_UPDATE_RTOL
+            or not stats_ok):
+        raise AssertionError("train step: card disagrees with the CPU")
+    del res, p_cpu, p_card
+
+    # -- the main path: 10 steps in float32 and in bf16 ------------------
+    dev_batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+    def run(dtype):
+        state = new_state(None, dtype)
+        step = T.build_train_step_compact(C, offsets, alpha=TRAIN_ALPHA)
+        losses, times = [], []
+
+        def timed(state, *args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, *args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+            return state, m
+
+        torch.cuda.reset_peak_memory_stats()
+        state, iters = train_compact([dev_batch] * TRAIN_STEPS, state, timed,
+                                     TRAIN_BATCH, 0, 0, print_freq=5)
+        peak = torch.cuda.max_memory_allocated()
+        ms = statistics.median(times[TRAIN_WARMUP:TRAIN_WARMUP
+                                     + TRAIN_TIMED])
+        return state, {"losses": losses, "step_ms": ms, "steps_ms": times,
+                       "images_per_s": TRAIN_BATCH / ms * 1e3,
+                       "peak_bytes": peak, "remat": False}
+
+    runs = {}
+
+    def main_path():
+        # float32 at batch 16 fits the card's 80 GB without the
+        # recipe's --remat (PERF.md: 31.8 GB peak)
+        state, runs["float32"] = run(None)
+        runs["float32"]["tf32"] = bool(torch.backends.cudnn.allow_tf32)
+        _, runs["bf16"] = run(torch.bfloat16)
+        return state
+
+    state32 = drive("train", main_path, ())
+    paths_train = {k: int(paths["train"].get(k, 0)) for k in kernel_names}
+    paths["train"] = paths_train
+    for name, r in runs.items():
+        print("  %s: losses %s; step %.1f ms (median of %d after %d "
+              "warm-up), %.2f images/s, peak %.2f GB allocated, remat %s "
+              "(%s)" % (name, ["%.4f" % v for v in r["losses"]],
+                        r["step_ms"], TRAIN_TIMED, TRAIN_WARMUP,
+                        r["images_per_s"], r["peak_bytes"] / 1e9,
+                        r["remat"], smi), flush=True)
+    l32, l16 = runs["float32"]["losses"], runs["bf16"]["losses"]
+    bf16_rel = abs(l16[0] - l32[0]) / abs(l32[0])
+    print("  launches on the train path: %s; first-step loss bf16 vs "
+          "float32: rel %.2e (limit %.2f)" % (paths_train, bf16_rel,
+                                              TRAIN_BF16_LOSS_RTOL),
+          flush=True)
+    if any(paths_train.values()):
+        raise AssertionError("the train path launched a decode kernel")
+    for name, r in runs.items():
+        if not (np.all(np.isfinite(r["losses"]))
+                and r["losses"][-1] < r["losses"][0]):
+            raise AssertionError("%s: the loss did not fall over %d steps "
+                                 "on one batch: %s" % (name, TRAIN_STEPS,
+                                                       r["losses"]))
+    if bf16_rel > TRAIN_BF16_LOSS_RTOL:
+        raise AssertionError("bf16 first-step loss %.6f vs float32 %.6f"
+                             % (l16[0], l32[0]))
+
+    # -- FLOPs per step and the share of the card's bf16 peak -----------
+    args = [dev_batch[k] for k in ("image", "mask", "object_class")]
+    with FlopCounterMode(display=False) as fc:
+        state32, _ = T.build_train_step_compact(
+            C, offsets, alpha=TRAIN_ALPHA)(state32, *args)
+    flops = fc.get_total_flops()
+    out["flops_per_step"] = flops
+    out["bf16_peak_share"] = flops / (runs["bf16"]["step_ms"] / 1e3) \
+        / H100_BF16_DENSE_FLOPS
+    out["fp32_peak_share"] = flops / (runs["float32"]["step_ms"] / 1e3) \
+        / H100_FP32_FLOPS
+    print("  %.4g FLOPs per step (FlopCounterMode, forward + backward); "
+          "bf16 step reaches %.4f of the dense bf16 peak %.0f TFLOP/s, "
+          "float32 (TF32 off) %.4f of the %.0f TFLOP/s non-tensor peak "
+          "(%s)" % (flops, out["bf16_peak_share"],
+                    H100_BF16_DENSE_FLOPS / 1e12, out["fp32_peak_share"],
+                    H100_FP32_FLOPS / 1e12, smi), flush=True)
+
+    # -- checkpoints: save, load into a fresh state, resume -------------
+    ckdir = os.path.join(HERE, "mergenet_tpu_torch", "_build", "train_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    save_checkpoint(ckdir, state32, True, epoch=1, best_iou=0.5,
+                    offsets=offsets)
+    small_img = torch.from_numpy(small["image"]).cuda().float() / 256.0
+    logits_saved = logits_at(state32.model, small_img, (256, 256))
+    step = T.build_train_step_compact(C, offsets, alpha=TRAIN_ALPHA)
+    fresh = T.create_train_state(PSPFPNet(nout), tx, seed=1)
+    fresh, meta = load_checkpoint(os.path.join(ckdir, "model_best"), fresh)
+    logits_loaded = logits_at(fresh.model, small_img, (256, 256))
+    old = {k: v.detach().double().cpu() for k, v in
+           state32.model.named_parameters()}
+    # the planted fault: the same checkpoint, its momentum buffers lost
+    dropped = T.create_train_state(PSPFPNet(nout), tx, seed=1)
+    dropped, _ = load_checkpoint(os.path.join(ckdir, "model_best"), dropped)
+    dropped.optimizer.state.clear()
+    state32, m_run = step(state32, *args)
+    fresh, m_res = step(fresh, *args)
+    dropped, _ = step(dropped, *args)
+    torch.cuda.synchronize()
+    run_params = dict(state32.model.named_parameters())
+    upd = _update_rel(dict(fresh.model.named_parameters()), run_params, old)
+    upd_dropped = _update_rel(dict(dropped.model.named_parameters()),
+                              run_params, old)
+    del dropped
+    bufs_equal = all(torch.equal(a, b) for a, b in zip(
+        fresh.model.buffers(), state32.model.buffers()))
+    params_equal = all(torch.equal(a, b) for a, b in zip(
+        fresh.model.parameters(), state32.model.parameters()))
+    out["checkpoint"] = {
+        "eval_logits_equal": bool(torch.equal(logits_loaded,
+                                              logits_saved)),
+        "meta": {"epoch": meta.get("epoch"), "step": fresh.step},
+        "resumed_loss": float(m_res["loss"]), "run_loss": float(m_run["loss"]),
+        "stats_equal": bufs_equal, "params_equal": params_equal,
+        "update_rel_max": max(upd.values()),
+        "momentum_dropped_update_rel_max": max(upd_dropped.values())}
+    print("  checkpoint: eval logits bit-equal %s; resumed step: loss %.6f "
+          "vs %.6f, running stats bit-equal %s, params bit-equal %s, "
+          "updates rel L2 max %.2e (limit %.0e); with the momentum "
+          "buffers dropped on load: %.2e" % (
+              out["checkpoint"]["eval_logits_equal"], m_res["loss"],
+              m_run["loss"], bufs_equal, params_equal,
+              out["checkpoint"]["update_rel_max"],
+              TRAIN_RESUME_UPDATE_RTOL,
+              out["checkpoint"]["momentum_dropped_update_rel_max"]),
+          flush=True)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    if not (out["checkpoint"]["eval_logits_equal"] and bufs_equal
+            and float(m_res["loss"]) == float(m_run["loss"])
+            and out["checkpoint"]["update_rel_max"]
+            <= TRAIN_RESUME_UPDATE_RTOL
+            and out["checkpoint"]["momentum_dropped_update_rel_max"]
+            > TRAIN_RESUME_UPDATE_RTOL and fresh.step == state32.step
+            and meta.get("epoch") == 1
+            and meta.get("offsets") == [tuple(o) for o in offsets]):
+        raise AssertionError("checkpoint round trip on the card failed: %s"
+                             % out["checkpoint"])
+    out.update(runs)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def main():
@@ -883,10 +1218,26 @@ def main():
     if not all(r["correct"] for r in bench_rows):
         raise AssertionError("gather bench: pgather != table[idx]")
 
-    # ---- 9. kernels line and device line ----
-    phase("done")
+    # ---- 9. training ----
+    phase("train: PSPFPNet-r50, batch %d, %d^2 crops, alpha %g, float32 "
+          "and bf16" % (TRAIN_BATCH, TRAIN_CROP, TRAIN_ALPHA))
     sources = {"floodscan": "floodscan.cu", "absorb": "absorb.cu",
                "tgather": "tgather.cu", "pgather": "pgather.cu"}
+    train = train_phase(drive, paths, smi, tuple(sources))
+    print("train " + json.dumps({
+        "card": smi, "config": train["config"],
+        **{name: {k: train[name][k] for k in (
+            "step_ms", "images_per_s", "peak_bytes", "remat", "losses")}
+           for name in ("float32", "bf16")},
+        "tf32": train["float32"]["tf32"],
+        "flops_per_step": train["flops_per_step"],
+        "bf16_peak_share": train["bf16_peak_share"],
+        "bf16_peak_flops": H100_BF16_DENSE_FLOPS,
+        "launches": paths["train"], "phase_s": train["phase_s"]}),
+        flush=True)
+
+    # ---- 10. kernels line and device line ----
+    phase("done")
     replaces = {"floodscan": "mergenet_tpu/ops/pallas/floodscan.py:105",
                 "absorb": "mergenet_tpu/ops/pallas/absorb.py:153",
                 "tgather": "mergenet_tpu/ops/pallas/tgather.py:83",
@@ -932,6 +1283,7 @@ def main():
                "serve_2frames_ms": serve_ms,
                "serve_2frames_fallback_ms": serve_tight_ms,
                "gather_bench": bench_rows, "certification": cert,
+               "train": train,
                "launches_by_path": paths,
                "total_s": time.perf_counter() - T0}
     print("summary " + json.dumps(summary), flush=True)

@@ -1,5 +1,6 @@
 """Readers for the committed fixtures: the Flax-tree npz checkpoint,
-8-bit RGB PNGs, and the certification probability maps.
+8-bit RGB PNGs, and the certification probability maps; and an 8-bit
+PNG writer (grayscale or RGB) for the training samples.
 
 Standard library and numpy only: the GPU machine has no cv2 or PIL."""
 
@@ -105,6 +106,33 @@ def read_png_rgb(path):
     for i in range(H):
         prev = img[i] = _unfilter_row(int(raw[i, 0]), raw[i, 1:], prev, 3)
     return img.reshape(H, W, 3)
+
+
+def _chunk(ctype, body):
+    return (struct.pack(">I", len(body)) + ctype + body
+            + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
+
+
+def write_png(path, img):
+    """Write an (H, W) grayscale or (H, W, 3) RGB uint8 image as an 8-bit
+    non-interlaced PNG (every scanline unfiltered)."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim == 2:
+        color = 0
+    elif img.ndim == 3 and img.shape[2] == 3:
+        color = 2
+    else:
+        raise ValueError("write_png takes (H, W) or (H, W, 3), got %s"
+                         % (img.shape,))
+    H, W = img.shape[:2]
+    rows = np.concatenate([np.zeros((H, 1), np.uint8),
+                           img.reshape(H, -1)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, color,
+                                              0, 0, 0))
+                + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + _chunk(b"IEND", b""))
 
 
 def load_offsets(fixture_dir):

@@ -2,7 +2,10 @@
 ResNet-50 backbone, pyramid pooling on the /32 stage, FPN head.
 
 The public forward takes and returns the reference's NHWC layout;
-inside, tensors are NCHW in channels_last memory format."""
+inside, tensors are NCHW in channels_last memory format.  `dtype`
+(e.g. torch.bfloat16) is the compute dtype of mixed-precision
+training: the input is cast to it, parameters and batch-norm
+statistics stay float32, the logits come back float32."""
 
 import torch
 import torch.nn.functional as F
@@ -71,9 +74,13 @@ class FPNModule(nn.Module):
 class PSPFPNet(nn.Module):
     """ResNet backbone + PPM on the /32 stage + FPN head."""
 
+    #: forward emits its logits at a requested `output_size`
+    takes_output_size = True
+
     def __init__(self, num_outputs, layer=50, fpn_dim=256,
-                 pool_sizes=(1, 2, 3, 6)):
+                 pool_sizes=(1, 2, 3, 6), dtype=None):
         super().__init__()
+        self.dtype = dtype
         dims = feature_dims(layer)
         self.ResNetBackbone_0 = ResNetBackbone(layer)
         self.PyramidPoolingModule_0 = PyramidPoolingModule(dims[-1],
@@ -88,6 +95,8 @@ class PSPFPNet(nn.Module):
         float32 logits at `output_size` (default: the input size)."""
         out_size = tuple(output_size) if output_size else x.shape[1:3]
         x = x.permute(0, 3, 1, 2)  # NHWC storage == channels_last NCHW
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         c2, c3, c4, c5 = self.ResNetBackbone_0(x)
         c5 = self.PyramidPoolingModule_0(c5)
         y = self.FPNModule_0((c2, c3, c4, c5))

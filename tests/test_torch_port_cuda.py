@@ -322,3 +322,50 @@ def test_hier_certification_of_two_fixtures_on_card(cuda_device):
     assert abs(ap - JAX_AP["a01"]["hier"][0]) <= 0.005, ap
     path = csegment.build()
     assert os.path.dirname(path) == _build.BUILD_DIR and os.path.exists(path)
+
+
+@pytest.mark.cuda
+def test_compact_train_step_on_card_matches_cpu(cuda_device):
+    """One `build_train_step_compact` step of PSPFPNet(layer=50,
+    fpn_dim=32) from `init_model`'s weights at 64x64, batch 2, alpha 20,
+    TF32 off, on the card and on the CPU: loss rtol 1e-3, running
+    statistics atol 1e-3, each parameter's update within 0.25 in
+    relative L2 norm (float32 gradients of train-mode batch norm over a
+    few values per channel move ~5% per leaf between summation orders;
+    tests/test_torch_port_train.py).  No decode kernel launches."""
+    import copy
+    from mergenet_tpu_torch.models import PSPFPNet
+    from mergenet_tpu_torch.parallel import train as T
+    rng = np.random.default_rng(12)
+    mask = np.repeat(np.repeat(rng.integers(0, 6, (2, 8, 8)), 8, 1), 8, 2)
+    mask = mask.astype(np.int32)
+    img = (mask[..., None] * np.array([40, 25, 10])
+           + rng.integers(0, 40, (2, 64, 64, 3))).astype(np.uint8)
+    oc = rng.integers(0, 5, (2, 16)).astype(np.int32)
+    oc[:, 0] = 0
+    step = T.build_train_step_compact(5, SPIRAL_OFFSETS, alpha=20.0)
+    model = PSPFPNet(15, fpn_dim=32)
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for dev in ("cpu", cuda_device):
+            state = T.create_train_state(copy.deepcopy(model),
+                                         T.make_optimizer(), seed=3,
+                                         device=dev)
+            old = {k: v.detach().double().cpu().clone()
+                   for k, v in state.model.named_parameters()}
+            _build.reset_launches()
+            state, m = step(state, img, mask, oc)
+            assert not any(_build.LAUNCHES.values())
+            out[str(dev)] = (float(m["loss"]), {
+                k: v.detach().double().cpu()
+                for k, v in state.model.state_dict().items()})
+    (l_cpu, s_cpu), (l_card, s_card) = out["cpu"], out[str(cuda_device)]
+    assert abs(l_card - l_cpu) <= 1e-3 * abs(l_cpu)
+    for k, v in s_cpu.items():
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(s_card[k], v, atol=1e-3, rtol=1e-3)
+        elif k in old:
+            du = v - old[k]
+            if float(du.abs().max()) >= 1e-6:
+                rel = float((s_card[k] - old[k] - du).norm() / du.norm())
+                assert rel <= 0.25, (k, rel)

@@ -27,7 +27,9 @@ SCRIPT = textwrap.dedent("""
     for m in ("serving", "bench_pallas_gather", "ops.pgather", "e2e",
               "decoder.device", "core.offsets", "core.config", "core.types",
               "data.rle", "data.coco", "data.cocoeval", "decoder.segmenter",
-              "decoder.csegment"):
+              "decoder.csegment", "models.unet", "ops.targets",
+              "ops.losses", "ops.metrics", "parallel.train",
+              "utils.checkpoint", "utils.logging", "utils.train_utils"):
         assert "mergenet_tpu_torch." + m in mods, m
     from mergenet_tpu_torch.decoder import csegment
     from mergenet_tpu_torch.e2e import masks_to_results

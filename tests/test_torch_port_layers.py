@@ -75,7 +75,7 @@ def test_conv_bn_relu_and_bn_eval():
         rng.standard_normal(8).astype(np.float32)
     ref = np.asarray(jm.apply({"params": params, "batch_stats": stats},
                               jnp.asarray(x), train=False))
-    tm = TL.ConvBNRelu(6, 8, kernel=3)
+    tm = TL.ConvBNRelu(6, 8, kernel=3).eval()
     tm.load_state_dict(flax_to_state_dict(params, stats), strict=True)
     got = _nhwc(tm(_nchw(x)))
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
