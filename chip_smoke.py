@@ -30,19 +30,38 @@ after:
   768x768 crops of the committed val frames, alpha 20), 10 compact
   steps through `train_compact` in float32 and in bf16 (no decode
   kernel may launch), after one step held against the CPU's, and a
-  checkpoint saved, loaded and resumed on the card.
+  checkpoint saved, loaded and resumed on the card;
+- the zoo: FCN-ResNet-18 and -152, FCN-VGG16 (SAME and the reference's
+  VALID head), UperNet and PSPNet at full width on a 1024x2048 frame
+  through `logits_at`, bf16 against float32, and the space-to-depth
+  stem against the 7x7 on the trained PSPFPNet-r50;
+- class inference: PSPNet-r101 from a synthetic caffemodel with the
+  released naming (`caffemodel_to_npz`, `apply_caffe_weights`, every
+  tensor bit-equal), `class_inference` with `tile_predict` (713x713
+  windows with flips, 19 classes remapped to 9) over the 4 bench images
+  at 1024x2048, the saved maps read back and gated;
+- the staged inference: `class_inference` and `offset_inference` of
+  PSPFPNet-r50, the saved maps decoded by
+  `run_segmentation_device(mode="hier")` on the card (floodscan,
+  absorb, tgather) and on the CPU, and their mask-AP;
+- PSPNet-r101's aux head in compact train steps (batch 16, 768x768,
+  aux_weight 0.4, bf16), after one step held against the CPU's with
+  the same dropout masks.
 
 Every check raises; the exit code is 0 only when all phases pass.
-Prints one line per phase, a `train {...}` line (step ms, images/s,
-peak memory, FLOPs per step, share of the bf16 peak), the summary, then
-the card, the kernels line, and last `{"ok": true, "device": {...}}`.
+Prints one line per phase, `train {...}`, `zoo {...}`,
+`class_inference {...}`, `staged {...}` and `train_aux {...}` lines
+(times, throughput, peak memory, FLOPs, shares of the bf16 peak), the
+new phases' spans (`utils/profiling.Stopwatch`), the summary, then the
+card, the kernels line, and last `{"ok": true, "device": {...}}`.
 
 Needs a CUDA device and the repository around it (the port,
 tests/fixtures/certification512 and the tests' shared data makers in
 tests/torch_port_helpers.py); imports torch, numpy, pytest (through
 those helpers) and the standard library besides the port.  Writes
 nothing outside mergenet_tpu_torch/_build/ (the train phase's
-checkpoints go to _build/train_ckpt and are removed).
+checkpoints, the synthetic caffemodel and the inference phases' maps go
+there and are removed).
 """
 
 import json
@@ -58,7 +77,9 @@ FIX = os.path.join(HERE, "tests", "fixtures", "certification512")
 sys.path.insert(0, os.path.join(HERE, "tests"))
 from torch_port_helpers import (FIXTURE_OFFSETS,  # noqa: E402
                                 JAX_AP, SERVE_KW, SPIRAL_OFFSETS,
-                                absorb_planes, coco_stats, wide_classes)
+                                absorb_planes, coco_stats,
+                                randomize_batch_norm, wide_classes,
+                                write_pspnet_caffemodel)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the non-tensor
 # 32-bit vector rate, the ceiling of the kernels' integer/float work
@@ -146,6 +167,44 @@ TRAIN_BF16_LOSS_RTOL = 0.02
 # buffers dropped must land above the limit: the script plants that
 # fault on a second loaded state and fails if the gate does not see it
 TRAIN_RESUME_UPDATE_RTOL = 2e-3
+
+# zoo phase: each arch at full width on a 1024x2048 frame (bench_img.png
+# upscaled x2), logits at 512x1024 through `logits_at`, in bf16 compute
+# and in float32 (TF32 off), seeded weights (flax-style init, batch
+# norms with seeded positive statistics): untrained logits, so the gates
+# are relative: the largest bf16 error over the float32 logits' largest
+# magnitude, and argmax agreement over the class channels
+ZOO_ARCHS = (("fcn8_resnet18", {}), ("fcn32_resnet152", {}),
+             ("fcn8_vgg16", {}), ("fcn8_vgg16", {"ref_head": True}),
+             ("upernet", {}), ("pspnet", {}))
+ZOO_BF16_MAX_REL = 0.05
+ZOO_BF16_ARGMAX = 0.9
+ZOO_REPS = 3
+# PSPFPNet-r50 (the committed trained weights) with the space-to-depth
+# stem against the 7x7, float32 (TF32 off): the same function up to the
+# stem's summation order; the largest logit error over the largest logit
+S2D_MAX_REL = 1e-4
+
+# class inference (PSPNet-r101, hszhao/PSPNet's pspnet101_cityscapes:
+# 19 classes, 713x713 windows, flips, caffe-style mean-subtracted BGR
+# input; the reference's remap of 11 stuff + 8 thing classes to 9), from
+# a synthetic caffemodel with the released naming and every tensor at
+# full size, on the 4 bench images upscaled to 1024x2048
+CLASS_WINDOW = (713, 713)
+CLASS_MODEL_CLASSES, CLASS_INSTANCE_CLASSES = 19, 9
+CLASS_SUM_TOL = 1e-5
+# bf16 against float32 maps: probabilities, so the gate is their mean
+# absolute difference and the argmax agreement; the largest difference
+# (a softmax over near-equal untrained logits moves a lot of mass for a
+# small logit error) is a reading
+CLASS_BF16_MEAN_ABS = 0.02
+CLASS_BF16_ARGMAX = 0.95
+CAFFE_MEAN_RGB = (123.68, 116.779, 103.939)  # data/dataset.py's caffe mode
+
+# train with PSPNet's aux head: PSPNet-r101 at the recipe's batch 16 of
+# 768x768 crops, alpha 20, aux_weight 0.4 (the PSPNet paper's), bf16
+TRAIN_AUX_WEIGHT = 0.4
+TRAIN_AUX_STEPS, TRAIN_AUX_WARMUP = 5, 2
 
 
 def phase(name):
@@ -332,26 +391,39 @@ def certify(drive):
             "cpp_classes": cm_cls}
 
 
+def bench_images():
+    """The 4 committed val images (certification512/bench_img*.png, val
+    ids 0-3, 512x1024 uint8 RGB)."""
+    from mergenet_tpu_torch import io
+    return [io.read_png_rgb(os.path.join(
+        FIX, "bench_img.png" if k == 0 else "bench_img_%d.png" % k))
+        for k in range(4)]
+
+
+def upscale2(a):
+    """x2 nearest upscale of an (H, W, ...) array: a val frame to a
+    Cityscapes frame's 1024x2048."""
+    import numpy as np
+    return np.repeat(np.repeat(a, 2, 0), 2, 1)
+
+
 def train_data(rng):
     """The train phase's compact batch: the 4 committed val images
-    (certification512/bench_img*.png, the first four sorted val ids, as
+    (`bench_images`, the first four sorted val ids, as
     scripts/export_bench_checkpoint.py took them) and their instance
     masks from val_ann.json (first annotation wins, ids in annotation
     order, classes through [0] + category ids), each upscaled x2
     (nearest) to 1024x2048; TRAIN_BATCH crops of TRAIN_CROP^2 at
     positions drawn from `rng`, frame i % 4 for crop i."""
     import numpy as np
-    from mergenet_tpu_torch import io
     from mergenet_tpu_torch.data import COCO
 
     coco = COCO(os.path.join(FIX, "val_ann.json"))
     ids = sorted(coco.imgs)[:4]
     cat_ids = [0] + coco.getCatIds()
     frames = []
-    for k, img_id in enumerate(ids):
+    for img_id, img in zip(ids, bench_images()):
         info = coco.imgs[img_id]
-        img = io.read_png_rgb(os.path.join(
-            FIX, "bench_img.png" if k == 0 else "bench_img_%d.png" % k))
         if (ids != [0, 1, 2, 3] or img.shape != (512, 1024, 3)
                 or (info["height"], info["width"]) != (512, 1024)):
             raise AssertionError("val image %s: ids %s, png %s, json %sx%s"
@@ -364,8 +436,7 @@ def train_data(rng):
             m = coco.annToMask(ann).astype(bool)
             mask[m & (mask == 0)] = i
             table[i] = cat_ids.index(ann["category_id"])
-        up = lambda a: np.repeat(np.repeat(a, 2, 0), 2, 1)  # noqa: E731
-        frames.append((up(img), up(mask), table))
+        frames.append((upscale2(img), upscale2(mask), table))
     S = TRAIN_CROP
     batch = {"image": [], "mask": [], "object_class": []}
     for i in range(TRAIN_BATCH):
@@ -634,6 +705,527 @@ def train_phase(drive, paths, smi, kernel_names):
     return out
 
 
+def _twin(make, model):
+    """`make()` (the same architecture, e.g. with another compute dtype)
+    built on the meta device and given `model`'s parameters and
+    statistics, shared, not copied."""
+    import torch
+    with torch.device("meta"):
+        twin = make()
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return twin.eval()
+
+
+def _relative_gap(got, ref, classes):
+    """(largest |got - ref| over the largest |ref|, argmax agreement over
+    the first `classes` channels) of two channel-last maps."""
+    err = float((got.float() - ref).abs().max() / ref.abs().max())
+    agree = float((got[..., :classes].argmax(-1)
+                   == ref[..., :classes].argmax(-1)).float().mean())
+    return err, agree
+
+
+def top_device_ops(fn, n=6):
+    """Run `fn` once under torch.profiler: (device busy ms, the union of
+    its kernels' intervals; the `n` aten ops with the most self device
+    ms, their kernels' time)."""
+    import torch
+    from mergenet_tpu_torch.profile_frame import _busy_ms
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = _busy_ms([(ev.time_range.start, ev.time_range.end)
+                     for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA])
+    ops = sorted(((e.key, e.self_device_time_total / 1e3)
+                  for e in prof.key_averages()
+                  if e.key.startswith("aten::")
+                  and e.self_device_time_total > 0), key=lambda r: -r[1])
+    return busy, [[k, ms] for k, ms in ops[:n]]
+
+
+def zoo_phase(drive, smi, sw):
+    """Every family of the zoo at full width (ZOO_ARCHS) on a 1024x2048
+    frame, logits at 512x1024: ms per forward in bf16 and float32 (TF32
+    off), parameters, FLOPs (FlopCounterMode), peak memory, and the
+    relative bf16 gates; then the space-to-depth stem against the 7x7 on
+    the committed trained PSPFPNet-r50.  No decode kernel may launch."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.convert import load_flax_weights
+    from mergenet_tpu_torch.models import (PSPFPNet, get_model, init_model,
+                                           logits_at, param_count)
+    from mergenet_tpu_torch.timing import median_ms
+
+    cuda = torch.device("cuda")
+    x32 = torch.from_numpy(upscale2(bench_images()[0])).to(cuda)[None]
+    x32 = x32.float() / 256.0
+    size = (512, 1024)
+    rows = []
+
+    def forwards():
+        for seed, (arch, kw) in enumerate(ZOO_ARCHS):
+            with sw.span("zoo build", sync=cuda):
+                with torch.device("meta"):  # no default init on the host
+                    m32 = get_model(9, 10, arch, **kw)
+                m32 = randomize_batch_norm(init_model(
+                    m32.to_empty(device=cuda), seed), seed + 100).eval()
+                m16 = _twin(lambda: get_model(9, 10, arch,
+                                              dtype=torch.bfloat16, **kw),
+                            m32)
+            row = {"arch": arch, **kw, "params": param_count(m32)}
+            with sw.span("zoo forwards", sync=cuda):
+                for name, m in (("float32", m32), ("bf16", m16)):
+                    torch.cuda.reset_peak_memory_stats()
+                    row[name + "_ms"] = median_ms(
+                        lambda: logits_at(m, x32, size), reps=ZOO_REPS)
+                    row[name + "_peak_bytes"] = \
+                        torch.cuda.max_memory_allocated()
+                lg32 = logits_at(m32, x32, size)
+                lg16 = logits_at(m16, x32, size)
+                with FlopCounterMode(display=False) as fc:
+                    logits_at(m16, x32, size)
+            row["flops"] = fc.get_total_flops()
+            row["finite"] = bool(torch.isfinite(lg32).all()
+                                 and torch.isfinite(lg16).all())
+            row["bf16_max_rel"], row["bf16_argmax"] = _relative_gap(
+                lg16, lg32, 9)
+            row["max_abs_logit"] = float(lg32.abs().max())
+            row["shape"] = list(lg32.shape)
+            rows.append(row)
+            print("  %-16s %s params %.2fM, %.4g FLOPs; float32 %.2f ms, "
+                  "bf16 %.2f ms per forward; peak %.2f / %.2f GB; bf16 vs "
+                  "float32: max rel %.2e (limit %.2f), argmax %.5f (limit "
+                  "%.2f) (%s)" % (
+                      arch, kw or "", row["params"] / 1e6, row["flops"],
+                      row["float32_ms"], row["bf16_ms"],
+                      row["float32_peak_bytes"] / 1e9,
+                      row["bf16_peak_bytes"] / 1e9, row["bf16_max_rel"],
+                      ZOO_BF16_MAX_REL, row["bf16_argmax"],
+                      ZOO_BF16_ARGMAX, smi), flush=True)
+            del m32, m16, lg32, lg16
+            torch.cuda.empty_cache()
+
+        params, stats = io.load_bench_checkpoint(os.path.join(
+            FIX, "bench_ckpt.npz"))
+        with sw.span("zoo s2d stem", sync=cuda):
+            base, s2d = (load_flax_weights(PSPFPNet(19, s2d_stem=v), params,
+                                           stats).to(cuda).eval()
+                         for v in (False, True))
+            ref = logits_at(base, x32, size)
+            got = logits_at(s2d, x32, size)
+        rel, agree = _relative_gap(got, ref, 9)
+        print("  pspfpnet s2d stem vs 7x7 stem (bench_ckpt.npz, float32, "
+              "TF32 off): max abs %.3e over max |logit| %.3f = %.3e "
+              "(limit %.0e); argmax agreement %.6f" % (
+                  float((got - ref).abs().max()), float(ref.abs().max()),
+                  rel, S2D_MAX_REL, agree), flush=True)
+        return {"s2d_max_rel": rel, "s2d_argmax": agree,
+                "s2d_finite": bool(torch.isfinite(got).all())}
+
+    s2d = drive("zoo", forwards, ())
+    bad = [r["arch"] for r in rows if not (
+        r["finite"] and r["bf16_max_rel"] <= ZOO_BF16_MAX_REL
+        and r["bf16_argmax"] >= ZOO_BF16_ARGMAX)]
+    if bad:
+        raise AssertionError("zoo: bf16 vs float32 gates failed for %s"
+                             % bad)
+    if not (s2d["s2d_finite"] and s2d["s2d_max_rel"] <= S2D_MAX_REL):
+        raise AssertionError("s2d stem differs from the 7x7: %s" % s2d)
+    return {"archs": rows, **s2d}
+
+
+def class_inference_phase(drive, smi, sw):
+    """PSPNet-r101 at the released Cityscapes configuration: a synthetic
+    caffemodel (the released naming, every tensor at full size, weights
+    from a seeded PSPNet with positive batch-norm statistics) written to
+    _build/, converted (`caffemodel_to_npz`) and loaded
+    (`apply_caffe_weights`) into a fresh model, every tensor bit-equal;
+    then `class_inference` with `tile_predict` (713^2 windows, flips, 19
+    classes remapped to 9) over the 4 bench images upscaled to
+    1024x2048, in bf16 and float32 (TF32 off); the saved maps read back
+    and gated.  No decode kernel may launch."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mergenet_tpu_torch.models import get_model, init_model, tile_predict
+    from mergenet_tpu_torch.models.tiling import _tile_grid
+    from mergenet_tpu_torch.parallel import train as T
+    from mergenet_tpu_torch.timing import median_ms
+    from mergenet_tpu_torch.utils.caffe_import import caffemodel_to_npz
+    from mergenet_tpu_torch.utils.inference_utils import class_inference
+    from mergenet_tpu_torch.utils.weight_import import apply_caffe_weights
+
+    cuda = torch.device("cuda")
+    work = os.path.join(HERE, "mergenet_tpu_torch", "_build", "class_infer")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {"config": {"model": "PSPNet-r101", "classes":
+                      CLASS_MODEL_CLASSES, "instance_classes":
+                      CLASS_INSTANCE_CLASSES, "window": CLASS_WINDOW,
+                      "flip": True}}
+    try:
+        t = time.perf_counter()
+        src = randomize_batch_norm(init_model(get_model(
+            CLASS_MODEL_CLASSES, 0, "pspnet"), 7), 8)
+        out["init_s"] = time.perf_counter() - t
+        cm = os.path.join(work, "pspnet101_synthetic.caffemodel")
+        with sw.span("caffe write"):
+            out["caffemodel_bytes"] = write_pspnet_caffemodel(cm, src, 101)
+        with sw.span("caffe to npz"):
+            names = caffemodel_to_npz(cm, os.path.join(work, "w.npz"))
+        os.unlink(cm)
+        model = get_model(CLASS_MODEL_CLASSES, 0, "pspnet")
+        with sw.span("caffe apply"):
+            with np.load(os.path.join(work, "w.npz")) as npz:
+                report = apply_caffe_weights(model, npz, layer=101)
+        os.unlink(os.path.join(work, "w.npz"))
+        ref = src.state_dict()
+        unequal = [k for k, v in model.state_dict().items()
+                   if not torch.equal(v, ref[k])]
+        out["caffe"] = {"bytes": out.pop("caffemodel_bytes"),
+                        "npz_keys": len(names),
+                        "layers_loaded": len(report["loaded"]),
+                        "unused_npz_keys": report["unused_npz_keys"],
+                        "tensors": len(ref), "tensors_unequal": unequal,
+                        "params": sum(p.numel() for p in src.parameters())}
+        print("  synthetic caffemodel: %d bytes, %d blobs, %d layers "
+              "loaded, %d parameters; unused npz keys %s; tensors "
+              "unequal to their source: %d of %d (write %.2f s, convert "
+              "%.2f s, apply %.2f s)" % (
+                  out["caffe"]["bytes"], len(names), len(report["loaded"]),
+                  out["caffe"]["params"], report["unused_npz_keys"],
+                  len(unequal), len(ref), sw.totals["caffe write"],
+                  sw.totals["caffe to npz"], sw.totals["caffe apply"]),
+              flush=True)
+        if unequal or report["unused_npz_keys"]:
+            raise AssertionError("caffemodel round trip: %s" % out["caffe"])
+        del src, ref
+
+        model = model.to(cuda).eval()
+        mean = np.asarray(CAFFE_MEAN_RGB, np.float32)
+        loader = [(np.array([i]), (upscale2(img).astype(np.float32)
+                                   - mean)[None, :, :, ::-1].copy())
+                  for i, img in enumerate(bench_images())]
+        tx = T.make_optimizer()
+        runs = {}
+
+        def tile_fn(m):
+            @torch.no_grad()
+            def fn(img):
+                return tile_predict(m, img, CLASS_INSTANCE_CLASSES,
+                                    CLASS_WINDOW,
+                                    n_model_classes=CLASS_MODEL_CLASSES)
+            return fn
+
+        def bf16():
+            return _twin(lambda: get_model(CLASS_MODEL_CLASSES, 0, "pspnet",
+                                           dtype=torch.bfloat16), model)
+
+        frame = loader[0][1].shape[1:3]  # 1024x2048
+        windows = 2 * len(_tile_grid(frame[0], CLASS_WINDOW[0])) * len(
+            _tile_grid(frame[1], CLASS_WINDOW[1]))
+
+        def infer_all():
+            for name, m in (("bf16", bf16()), ("float32", model)):
+                state = T.TrainState(step=0, model=m, optimizer=tx.init(
+                    model.parameters()), tx=tx)
+                torch.cuda.reset_peak_memory_stats()
+                with sw.span("class inference " + name, sync=cuda):
+                    class_inference(loader, os.path.join(work, name), state,
+                                    CLASS_INSTANCE_CLASSES, 1, print_freq=1,
+                                    tile_predict_fn=tile_fn(m))
+                span = sw.totals["class inference " + name]
+                runs[name] = {"ms_per_image": span / len(loader) * 1e3,
+                              "windows_per_s": windows * len(loader) / span,
+                              "peak_bytes":
+                                  torch.cuda.max_memory_allocated()}
+            img = torch.from_numpy(loader[0][1]).to(cuda)
+            for name, m in (("bf16", bf16()), ("float32", model)):
+                # the tiled forward alone, warm: no first-call set-up, no
+                # host copy or file write
+                runs[name]["tiled_forward_ms"] = median_ms(
+                    lambda: tile_fn(m)(img), reps=3)
+            runs["bf16"]["device_busy_ms"], runs["bf16"]["top_ops_ms"] = \
+                top_device_ops(lambda: tile_fn(bf16())(img))
+            with FlopCounterMode(display=False) as fc:
+                tile_fn(bf16())(img)
+            return fc.get_total_flops()
+
+        flops = drive("class inference", infer_all, ())
+        maps = {name: [np.load(os.path.join(work, name, "npy",
+                                            "%d.class.npy" % i))
+                       for i in range(len(loader))] for name in runs}
+        shape_ok = all(a.dtype == np.float32 and a.shape == (
+            CLASS_INSTANCE_CLASSES,) + frame for v in maps.values()
+            for a in v)
+        sum_err = max(float(np.abs(a.sum(0, dtype=np.float64) - 1).max())
+                      for v in maps.values() for a in v)
+        m16, m32 = (torch.from_numpy(np.stack(maps[k])).movedim(1, -1)
+                    for k in ("bf16", "float32"))
+        max_abs, agree = _relative_gap(m16, m32, CLASS_INSTANCE_CLASSES)
+        mean_abs = float((m16 - m32).abs().mean())
+        out.update(runs)
+        out["config"]["frame"] = list(frame)
+        share = {k: flops / (runs["bf16"][k] / 1e3) / H100_BF16_DENSE_FLOPS
+                 for k in ("ms_per_image", "tiled_forward_ms")}
+        out.update({"flops_per_image": flops, "windows_per_image": windows,
+                    "bf16_peak_share": share["ms_per_image"],
+                    "bf16_forward_peak_share": share["tiled_forward_ms"],
+                    "maps_shape_ok": shape_ok, "sum_max_err": sum_err,
+                    "bf16_max_abs": max_abs, "bf16_mean_abs": mean_abs,
+                    "bf16_argmax": agree})
+        for name, r in runs.items():
+            print("  %s: %.1f ms per %dx%d image through class_inference "
+                  "(%d windows of %dx%d, flips included; the tiled forward "
+                  "alone, warm: %.1f ms), %.1f windows/s, peak %.2f GB (%s)"
+                  % (name, r["ms_per_image"], frame[0], frame[1], windows,
+                     CLASS_WINDOW[0],
+                     CLASS_WINDOW[1], r["tiled_forward_ms"],
+                     r["windows_per_s"], r["peak_bytes"] / 1e9, smi),
+                  flush=True)
+        print("  bf16 tiled forward, device busy %.1f ms; top ops (self "
+              "device ms): %s" % (runs["bf16"]["device_busy_ms"],
+                                  runs["bf16"]["top_ops_ms"]), flush=True)
+        print("  %.4g FLOPs per image (FlopCounterMode); bf16 at %.4f of the "
+              "dense bf16 peak through class_inference, %.4f in the tiled "
+              "forward alone; maps (9, H, W) float32: %s; per-pixel "
+              "sums within %.1e of 1 (limit %.0e); bf16 vs float32 maps: "
+              "mean abs %.2e (limit %.2f), max abs %.3f, argmax %.5f "
+              "(limit %.2f)" % (
+                  flops, out["bf16_peak_share"],
+                  out["bf16_forward_peak_share"], shape_ok, sum_err,
+                  CLASS_SUM_TOL, mean_abs, CLASS_BF16_MEAN_ABS, max_abs,
+                  agree, CLASS_BF16_ARGMAX), flush=True)
+        if not (shape_ok and sum_err <= CLASS_SUM_TOL
+                and mean_abs <= CLASS_BF16_MEAN_ABS
+                and agree >= CLASS_BF16_ARGMAX):
+            raise AssertionError("class inference maps failed their gates")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def staged_phase(drive, smi, sw):
+    """The staged inference of `infer_pspfpnet.sh` stages 0-2 (class and
+    offset heads -> saved maps -> `segment.py --decoder device`):
+    `class_inference` and `offset_inference` of PSPFPNet-r50 with the
+    committed trained weights on the 4 bench images (512x1024, /256),
+    the saved maps read back and decoded by
+    `run_segmentation_device(mode="hier")` on the card and on the CPU,
+    held to the decode gates; mask-AP against val_ann.json as a
+    reading."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.convert import load_flax_weights
+    from mergenet_tpu_torch.data import COCO
+    from mergenet_tpu_torch.decoder.device import run_segmentation_device
+    from mergenet_tpu_torch.e2e import masks_to_results
+    from mergenet_tpu_torch.models import PSPFPNet
+    from mergenet_tpu_torch.parallel import train as T
+    from mergenet_tpu_torch.utils.inference_utils import (class_inference,
+                                                          offset_inference)
+
+    cuda = torch.device("cuda")
+    C = 9
+    offsets = io.load_offsets(FIX)
+    params, stats = io.load_bench_checkpoint(os.path.join(FIX,
+                                                          "bench_ckpt.npz"))
+    model = load_flax_weights(PSPFPNet(C + len(offsets)), params,
+                              stats).to(cuda).eval()
+    tx = T.make_optimizer()
+    state = T.TrainState(step=0, model=model,
+                         optimizer=tx.init(model.parameters()), tx=tx)
+    imgs = [img.astype(np.float32) / 256.0 for img in bench_images()]
+    loader = [(np.array([0, 1]), np.stack(imgs[:2])),
+              (np.array([2, 3]), np.stack(imgs[2:]))]
+    work = os.path.join(HERE, "mergenet_tpu_torch", "_build", "staged")
+    shutil.rmtree(work, ignore_errors=True)
+    masks = {}
+
+    def maps(i):
+        return (np.load(os.path.join(work, "class", "npy",
+                                     "%d.class.npy" % i)),
+                np.load(os.path.join(work, "offset", "npy",
+                                     "%d.offset.npy" % i)))
+
+    def card_path():
+        with sw.span("staged heads", sync=cuda):
+            class_inference(loader, os.path.join(work, "class"), state, C, 2)
+            offset_inference(loader, os.path.join(work, "offset"), state,
+                             offsets, 2)
+        with sw.span("staged card decode", sync=cuda):
+            for i in range(4):
+                masks[i] = run_segmentation_device(*maps(i), C, offsets,
+                                                   mode="hier", **SERVE_KW)
+
+    try:
+        drive("staged", card_path, ("floodscan", "absorb", "tgather"))
+        checks, results = [], []
+        coco = COCO(os.path.join(FIX, "val_ann.json"))
+        cats = [0] + coco.getCatIds()
+        with sw.span("staged cpu decode"):
+            for i in range(4):
+                cp, sp = maps(i)
+                hw = imgs[i].shape[:2]  # 512x1024
+                if cp.shape != (C,) + hw or sp.shape != (
+                        len(offsets),) + hw or cp.dtype != np.float32:
+                    raise AssertionError("staged maps: %s %s %s" % (
+                        cp.shape, sp.shape, cp.dtype))
+                ref, _ = run_segmentation_device(cp, sp, C, offsets,
+                                                 mode="hier", device="cpu",
+                                                 **SERVE_KW)
+                mask, classes = masks[i]
+                checks.append(check_decode("staged image %d" % i, mask,
+                                           ref))
+                results += masks_to_results(
+                    mask[None], np.asarray(list(classes) + [-1],
+                                           np.int32)[None], [i], cats)
+        ap, ap50 = coco_stats(coco, results, [0, 1, 2, 3])[:2]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("  staged: heads %.2f s, card decodes %.2f s, CPU decodes %.2f s "
+          "for 4 images; mask-AP %.4f, AP50 %.4f over the 4 images "
+          "(port's COCOeval, a reading) (%s)" % (
+              sw.totals["staged heads"], sw.totals["staged card decode"],
+              sw.totals["staged cpu decode"], ap, ap50, smi), flush=True)
+    return {"checks": checks, "mask_ap": ap, "mask_ap50": ap50}
+
+
+def train_aux_phase(drive, smi, sw):
+    """PSPNet-r101 with its aux head at the recipe's configuration (batch
+    16, 768^2 crops, alpha 20) and aux_weight 0.4 in bf16: first one
+    step at batch 2, 256^2 (float32, TF32 off) on the card against the
+    CPU with the same dropout masks (drawn on the CPU, moved to the
+    card); then TRAIN_AUX_STEPS compact steps with a seeded dropout
+    generator on the card, without remat if they fit (else with it, and
+    said so): finite losses, `aux_loss` reported, no decode kernel."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.models import get_model
+    from mergenet_tpu_torch.models.layers import Dropout
+    from mergenet_tpu_torch.parallel import train as T
+
+    C = 9
+    offsets = io.load_offsets(FIX)
+    tx = T.make_optimizer(lr=0.01, momentum=0.9, nesterov=True,
+                          weight_decay=1e-4)
+    batch, _ = train_data(np.random.default_rng(0))
+    args = ("image", "mask", "object_class")
+
+    # -- card against CPU, one step, the same dropout masks -------------
+    small = {k: v[:2, :256, :256] if v.ndim > 2 else v[:2]
+             for k, v in batch.items()}
+    drawn = []
+    res = {}
+    for dev in ("cpu", "cuda"):
+        state = T.create_train_state(get_model(C, len(offsets), "pspnet"),
+                                     tx, seed=3, device=dev)
+        drops = [m for m in state.model.modules() if isinstance(m, Dropout)]
+        for i, d in enumerate(drops):
+            if dev == "cpu":  # draw from the CPU generator, keep them
+                d.mask = (lambda orig: lambda x: drawn.append(orig(x))
+                          or drawn[-1])(d.mask)
+            else:  # the same masks, moved to the card
+                d.mask = lambda x, i=i: drawn[i].to(x.device)
+        step = T.build_train_step_compact(C, offsets, alpha=TRAIN_ALPHA,
+                                          aux_weight=TRAIN_AUX_WEIGHT)
+        state, m = step(state, *(small[k] for k in args),
+                        torch.Generator(device=dev).manual_seed(4))
+        res[dev] = (float(m["loss"]), float(m["aux_loss"]))
+        del state
+    loss_rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    aux_rel = abs(res["cuda"][1] - res["cpu"][1]) / abs(res["cpu"][1])
+    print("  card vs cpu, one aux step at batch 2, 256^2 (TF32 off, the "
+          "same %d dropout masks): loss %.6f / %.6f (rel %.2e, limit %.0e),"
+          " aux loss %.6f / %.6f (rel %.2e)" % (
+              len(drawn), res["cuda"][0], res["cpu"][0], loss_rel,
+              TRAIN_LOSS_RTOL, res["cuda"][1], res["cpu"][1], aux_rel),
+          flush=True)
+    if len(drawn) != 2 or loss_rel > TRAIN_LOSS_RTOL:
+        raise AssertionError("aux train step: card disagrees with the CPU")
+
+    # -- the main path: compact steps in bf16 ----------------------------
+    dev_batch = [torch.from_numpy(batch[k]).cuda() for k in args]
+    out = {"card_vs_cpu": {"loss_card": res["cuda"][0],
+                           "loss_cpu": res["cpu"][0], "loss_rel": loss_rel,
+                           "aux_card": res["cuda"][1],
+                           "aux_cpu": res["cpu"][1], "aux_rel": aux_rel}}
+
+    def run(remat):
+        state = T.create_train_state(get_model(
+            C, len(offsets), "pspnet", dtype=torch.bfloat16), tx, seed=0)
+        step = T.build_train_step_compact(
+            C, offsets, alpha=TRAIN_ALPHA, aux_weight=TRAIN_AUX_WEIGHT,
+            remat=remat)
+        rng = torch.Generator(device="cuda").manual_seed(0)
+        losses, auxes, times = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(TRAIN_AUX_STEPS):
+            with sw.span("train aux step", sync=torch.device("cuda")):
+                t = time.perf_counter()
+                state, m = step(state, *dev_batch, rng)
+                losses.append(float(m["loss"]))
+                auxes.append(float(m["aux_loss"]))
+                times.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        with FlopCounterMode(display=False) as fc:
+            step(state, *dev_batch, rng)
+        busy, top = top_device_ops(lambda: step(state, *dev_batch, rng))
+        ms = statistics.median(times[TRAIN_AUX_WARMUP:])
+        return {"remat": remat, "losses": losses, "aux_losses": auxes,
+                "steps_ms": times, "step_ms": ms,
+                "images_per_s": TRAIN_BATCH / ms * 1e3, "peak_bytes": peak,
+                "flops_per_step": fc.get_total_flops(),
+                "device_busy_ms": busy, "top_ops_ms": top}
+
+    def main_path():
+        try:
+            return run(False)
+        except torch.cuda.OutOfMemoryError:
+            pass  # leaving the handler frees the failed run's tensors
+        torch.cuda.empty_cache()
+        return run(True)
+
+    r = drive("train aux", main_path, ())
+    r["bf16_peak_share"] = r["flops_per_step"] / (r["step_ms"] / 1e3) \
+        / H100_BF16_DENSE_FLOPS
+    out.update(r)
+    print("  bf16, batch %d, %d^2, remat %s: losses %s, aux losses %s; step "
+          "%.1f ms (median after %d warm-up), %.2f images/s, peak %.2f GB, "
+          "%.4g FLOPs per step, %.4f of the dense bf16 peak (%s)" % (
+              TRAIN_BATCH, TRAIN_CROP, r["remat"],
+              ["%.4f" % v for v in r["losses"]],
+              ["%.4f" % v for v in r["aux_losses"]], r["step_ms"],
+              TRAIN_AUX_WARMUP, r["images_per_s"], r["peak_bytes"] / 1e9,
+              r["flops_per_step"], r["bf16_peak_share"], smi), flush=True)
+    print("  one profiled step: device busy %.1f ms; top ops (self device "
+          "ms): %s" % (r["device_busy_ms"], r["top_ops_ms"]), flush=True)
+    if not (np.all(np.isfinite(r["losses"]))
+            and np.all(np.isfinite(r["aux_losses"]))
+            and min(r["aux_losses"]) > 0):
+        raise AssertionError("aux train steps: losses %s, aux %s"
+                             % (r["losses"], r["aux_losses"]))
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -650,6 +1242,7 @@ def main():
     from mergenet_tpu_torch.models import PSPFPNet, logits_at, probs_at
     from mergenet_tpu_torch.ops import (_build, absorb, floodscan, pgather,
                                         tgather)
+    from mergenet_tpu_torch.utils import profiling
 
     signal.signal(signal.SIGALRM, _on_alarm)
     signal.alarm(LIMIT_S)
@@ -1236,7 +1829,35 @@ def main():
         "launches": paths["train"], "phase_s": train["phase_s"]}),
         flush=True)
 
-    # ---- 10. kernels line and device line ----
+    # ---- 10. the rest of the zoo, tiled class inference, the staged
+    # inference and the aux head's train steps ----
+    sw = profiling.Stopwatch()
+    phase("zoo: every family at full width on a 1024x2048 frame, bf16 and "
+          "float32; the s2d stem")
+    zoo = zoo_phase(drive, smi, sw)
+    print("zoo " + json.dumps({"card": smi, **zoo}), flush=True)
+    phase("class inference: PSPNet-r101 from a synthetic caffemodel, "
+          "713x713 windows with flips over 1024x2048 frames")
+    cls_inf = class_inference_phase(drive, smi, sw)
+    print("class_inference " + json.dumps({"card": smi, **cls_inf}),
+          flush=True)
+    phase("staged inference: PSPFPNet-r50 class and offset heads -> saved "
+          "maps -> run_segmentation_device(mode='hier')")
+    staged = staged_phase(drive, smi, sw)
+    print("staged " + json.dumps({"card": smi, **staged}), flush=True)
+    phase("train: PSPNet-r101 with the aux head, batch %d, %d^2 crops, "
+          "aux_weight %g, bf16" % (TRAIN_BATCH, TRAIN_CROP,
+                                   TRAIN_AUX_WEIGHT))
+    train_aux = train_aux_phase(drive, smi, sw)
+    print("train_aux " + json.dumps({"card": smi, **train_aux}), flush=True)
+    for name in ("zoo", "class inference", "train aux"):
+        if any(paths[name].values()):
+            raise AssertionError("the %s path launched a decode kernel: %s"
+                                 % (name, paths[name]))
+    print("  spans of the new phases (utils/profiling.Stopwatch):", flush=True)
+    sw.summary()
+
+    # ---- 11. kernels line and device line ----
     phase("done")
     replaces = {"floodscan": "mergenet_tpu/ops/pallas/floodscan.py:105",
                 "absorb": "mergenet_tpu/ops/pallas/absorb.py:153",
@@ -1283,7 +1904,8 @@ def main():
                "serve_2frames_ms": serve_ms,
                "serve_2frames_fallback_ms": serve_tight_ms,
                "gather_bench": bench_rows, "certification": cert,
-               "train": train,
+               "train": train, "zoo": zoo, "class_inference": cls_inf,
+               "staged": staged, "train_aux": train_aux,
                "launches_by_path": paths,
                "total_s": time.perf_counter() - T0}
     print("summary " + json.dumps(summary), flush=True)

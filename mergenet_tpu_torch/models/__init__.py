@@ -1,5 +1,7 @@
-"""Model zoo of the port (`mergenet_tpu.models` is the reference):
-PSPFPNet-r50 and UNet so far, built by the reference's arch names.
+"""Model zoo of the port (`mergenet_tpu.models` is the reference): every
+arch of the reference's `VALID_ARCHS` (FCN over ResNet-18..152 and
+VGG16, UNet, PSPNet, PSPFPNet, UperNet), built by its arch names, and
+tiled inference (`tile_predict`).
 
 Models map an NHWC batch (N, H, W, 3) to float32 logits (N, H, W,
 num_classes + num_offsets)."""
@@ -9,9 +11,13 @@ import math
 import torch
 
 from .layers import ConvTranspose2d, SyncBatchNorm, resize_bilinear
-from .pspnet import FPNModule, PSPFPNet, PyramidPoolingModule  # noqa: F401
-from .resnet import Bottleneck, ResNetBackbone  # noqa: F401
+from .fcn import FCNResNet, FCNVGG16  # noqa: F401
+from .pspnet import (FPNModule, PSPFPNet, PSPNet,  # noqa: F401
+                     PyramidPoolingModule, UperNet)
+from .resnet import BasicBlock, Bottleneck, ResNetBackbone  # noqa: F401
+from .tiling import tile_predict  # noqa: F401
 from .unet import DownConv, UNet, UpConv  # noqa: F401
+from .vgg import VGG16Backbone  # noqa: F401
 
 VALID_ARCHS = (
     ["fcn{}_resnet{}".format(x, y)
@@ -22,15 +28,18 @@ VALID_ARCHS = (
 
 #: the blocks `torch.utils.checkpoint` recomputes under `remat=True`
 #: (parallel/train.py): each keeps only its inputs for the backward
-REMAT_BLOCKS = (Bottleneck, PyramidPoolingModule, FPNModule, DownConv,
-                UpConv)
+REMAT_BLOCKS = (BasicBlock, Bottleneck, PyramidPoolingModule, FPNModule,
+                DownConv, UpConv)
 
 
 def get_model(num_classes, num_offsets, arch, dtype=None, **model_kwargs):
     """Build a model by the reference's arch string.  `dtype` is the
     compute dtype (torch.bfloat16 for mixed precision: float32 params and
-    batch-norm statistics, float32 logits).  The parameters are torch's
-    defaults until `init_model` or a weight loader sets them."""
+    batch-norm statistics, float32 logits).  Extra `model_kwargs` pass
+    through to the arch's constructor (`ref_head` and `width_mult` of
+    the vgg16 archs, `s2d_stem` of pspfpnet).  The parameters
+    are torch's defaults until `init_model` or a weight loader sets
+    them."""
     if arch not in VALID_ARCHS:
         raise ValueError("Supported models are: {}\nbut given {}".format(
             VALID_ARCHS, arch))
@@ -41,12 +50,21 @@ def get_model(num_classes, num_offsets, arch, dtype=None, **model_kwargs):
         # lightweight variant for smoke tests and quick experiments
         return UNet(num_classes, num_offsets, depth=3, start_filts=8,
                     dtype=dtype, **model_kwargs)
+    if "vgg16" in arch:
+        return FCNVGG16(num_outputs, scale=int(arch.split("_")[0][3:]),
+                        dtype=dtype, **model_kwargs)
+    if arch.startswith("fcn"):
+        names = arch.split("_")
+        return FCNResNet(num_outputs, scale=int(names[0][3:]),
+                         layer=int(names[1][6:]), dtype=dtype,
+                         **model_kwargs)
     if arch == "pspfpnet":
         return PSPFPNet(num_outputs, layer=50, fpn_dim=256, dtype=dtype,
                         **model_kwargs)
-    raise NotImplementedError(
-        "arch %r is not ported yet (ROADMAP.md queue 1, item 5: the rest "
-        "of the model zoo)" % arch)
+    if arch == "pspnet":
+        return PSPNet(num_outputs, layer=101, dtype=dtype, **model_kwargs)
+    return UperNet(num_outputs, layer=50, fpn_dim=512, dtype=dtype,
+                   **model_kwargs)
 
 
 @torch.no_grad()

@@ -105,17 +105,76 @@ class SyncBatchNorm(nn.Module):
         return y
 
 
-class StemConv7(nn.Module):
-    """The 7x7/stride-2 ResNet stem conv with symmetric padding 3 (the
-    reference's space-to-depth rewrite is a TPU layout trick and is not
-    ported)."""
+def space_to_depth(x, r=2):
+    """NCHW space-to-depth: (N, C, H, W) -> (N, r*r*C, H/r, W/r) with
+    the reference's channel order (row-parity, col-parity, channel)."""
+    n, c, h, w = x.shape
+    return (x.reshape(n, c, h // r, r, w // r, r)
+            .permute(0, 3, 5, 1, 2, 4)
+            .reshape(n, r * r * c, h // r, w // r))
 
-    def __init__(self, cin=3, features=64):
+
+def _s2d_stem_kernel(weight):
+    """Embed a (F, I, 7, 7) stride-2 weight into the (F, 4I, 4, 4)
+    stride-1 weight that computes the same conv on space-to-depth-2
+    input padded (2, 1): a zero row and column in front (the 4x4 window
+    position outside the 7x7 footprint), then each spatial axis split
+    into (tap, parity) so the channels line up with `space_to_depth`."""
+    f, i = weight.shape[:2]
+    k8 = F.pad(weight, (1, 0, 1, 0))
+    return (k8.reshape(f, i, 4, 2, 4, 2)
+            .permute(0, 3, 5, 1, 2, 4)
+            .reshape(f, 4 * i, 4, 4))
+
+
+class StemConv7(nn.Module):
+    """The 7x7/stride-2 ResNet stem conv with symmetric padding 3.  With
+    `s2d=True` (and even H and W, as the reference requires; otherwise
+    the strided conv runs) it computes the same conv as a 4x4/stride-1
+    conv over the 2x2 space-to-depth input, equal up to float summation
+    order.  The parameter is the (features, in, 7, 7) weight either way,
+    so checkpoints do not change."""
+
+    def __init__(self, cin=3, features=64, s2d=False):
         super().__init__()
+        self.s2d = s2d
         self.weight = nn.Parameter(torch.empty(features, cin, 7, 7))
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(x.dtype), stride=2, padding=3)
+        w = self.weight.to(x.dtype)
+        if self.s2d and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
+            return F.conv2d(F.pad(space_to_depth(x), (2, 1, 2, 1)),
+                            _s2d_stem_kernel(w))
+        return F.conv2d(x, w, stride=2, padding=3)
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout(rate, deterministic=not train)`: in train mode
+    each element is kept with probability 1 - rate (a uniform draw below
+    it) and scaled by 1 / (1 - rate); in eval mode the identity.  The
+    draws come from `generator`, a `torch.Generator` on the input's
+    device that the train step sets (its `rng` argument); train mode
+    without one raises: torch's global generator is never used."""
+
+    def __init__(self, rate):
+        super().__init__()
+        self.rate = rate
+        self.generator = None
+
+    def mask(self, x):
+        """The keep mask of `x`'s shape (True = kept)."""
+        if self.generator is None:
+            raise RuntimeError(
+                "dropout in train mode needs a torch.Generator: pass the "
+                "train step its rng argument")
+        return torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < 1.0 - self.rate
+
+    def forward(self, x):
+        if not self.training or self.rate == 0:
+            return x
+        keep = 1.0 - self.rate
+        return torch.where(self.mask(x), x / keep, torch.zeros_like(x))
 
 
 class ConcatFusionConv(nn.Module):
@@ -163,6 +222,18 @@ def resize_bilinear(x, size):
         return x
     return F.interpolate(x, size=(H, W), mode="bilinear",
                          align_corners=False, antialias=(H < h or W < w))
+
+
+def to_nchw(x, dtype=None):
+    """A model's NHWC input as NCHW (its storage is channels_last
+    already: no copy), cast to the compute `dtype` when one is set."""
+    x = x.permute(0, 3, 1, 2)
+    return x if dtype is None else x.to(dtype)
+
+
+def nhwc_logits(y, size):
+    """An NCHW head output resized to `size`, as float32 NHWC logits."""
+    return resize_bilinear(y, size).permute(0, 2, 3, 1).float()
 
 
 def max_pool(x, window=2, stride=2, padding=0):

@@ -12,7 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import (ConvTranspose2d, SyncBatchNorm, conv2d, max_pool,
-                     resize_bilinear)
+                     resize_bilinear, to_nchw)
 
 
 class DownConv(nn.Module):
@@ -92,9 +92,7 @@ class UNet(nn.Module):
         self.Conv_0 = conv2d(outs, num_classes + num_offsets, 1, bias=True)
 
     def forward(self, x):
-        x = x.permute(0, 3, 1, 2)  # NHWC storage == channels_last NCHW
-        if self.dtype is not None:
-            x = x.to(self.dtype)
+        x = to_nchw(x, self.dtype)
         skips = []
         for i in range(self.depth):
             x, before_pool = getattr(self, "DownConv_%d" % i)(x)

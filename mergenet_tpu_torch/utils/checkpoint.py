@@ -4,7 +4,10 @@ batch-norm statistics, the optimizer's momentum buffers and the update
 count, beside a `<name>.meta.json` with the epoch, the best IoU and the
 offset list (part of the model contract: inference reads it back).
 One process; the reference's multi-host barriers wait for the
-data-parallel slice."""
+data-parallel slice.
+
+`import_torch_checkpoint` reads a checkpoint of the original torch
+framework (`.pth.tar`) for `utils.weight_import`."""
 
 import json
 import os
@@ -70,3 +73,19 @@ def load_checkpoint(dir, state, filename="checkpoint"):
         if meta.get("offsets"):
             meta["offsets"] = [tuple(o) for o in meta["offsets"]]
     return state, meta
+
+
+def import_torch_checkpoint(path):
+    """Load a reference `.pth.tar` checkpoint (or a plain state dict)
+    into a flat dict of numpy arrays keyed by the torch state-dict names,
+    as torch stores them (convs OIHW, transposed convs (in, out, kh,
+    kw)); a `model_state` entry is unwrapped.  Returns (flat_weights,
+    metadata: `epoch`, `best_iou`, `offset` where present).  The file
+    is a pickle (its metadata need not be tensors): load only
+    checkpoints you trust."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    state_dict = ckpt.get("model_state", ckpt)
+    flat = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    meta = {k: ckpt[k] for k in ("epoch", "best_iou", "offset")
+            if isinstance(ckpt, dict) and k in ckpt}
+    return flat, meta

@@ -10,6 +10,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from .. import io
 from ..core.offsets import generate_offsets  # noqa: F401 (reference home)
@@ -43,11 +44,13 @@ class AverageMeter(object):
 def train(trainloader, state, train_step, batch_size, epoch, iterations,
           num_classes=0, class_nms=None, offset_list=None,
           print_freq=10, log_freq=1000, tensorboard=False, score=False,
-          eval_step=None, lr_for_log=None):
+          eval_step=None, rng=None, lr_for_log=None):
     """Train for one epoch; returns (state, iterations).
 
-    `train_step(state, img, target) -> (state, metrics)` is the step from
-    `build_train_step`.  With `score=True`, `eval_step` (from
+    `train_step(state, img, target, rng) -> (state, metrics)` is the step
+    from `build_train_step`; `rng` is the dropout `torch.Generator`,
+    by default one on the state's device seeded with `epoch` (the
+    reference's `PRNGKey(epoch)`).  With `score=True`, `eval_step` (from
     `build_eval_step`) scores IoU on the training batches after each
     update."""
     with_class = num_classes > 0
@@ -60,11 +63,12 @@ def train(trainloader, state, train_step, batch_size, epoch, iterations,
         offset_metrics = offsetIoU(offset_list)
     if tensorboard and lr_for_log is not None:
         tb.log_value("learning_rate", lr_for_log, epoch)
+    rng = rng if rng is not None else _epoch_rng(state, epoch)
 
     end = time.time()
     num_batches = len(trainloader) if hasattr(trainloader, "__len__") else 0
     for i, (img, target) in enumerate(trainloader):
-        state, metrics = train_step(state, img, target)
+        state, metrics = train_step(state, img, target, rng)
         iterations += 1
 
         if score and (with_class or with_offset) and eval_step is not None:
@@ -115,17 +119,18 @@ def train(trainloader, state, train_step, batch_size, epoch, iterations,
 
 def train_compact(batches, state, train_step, batch_size, epoch,
                   iterations, print_freq=10, log_freq=1000,
-                  tensorboard=False):
+                  tensorboard=False, rng=None):
     """Train one epoch over compact batches (dicts of `image` uint8,
     `mask` and `object_class` integers) with `build_train_step_compact`,
-    which normalises and builds the (C + O)-plane targets on the device.
-    Returns (state, iterations)."""
+    which normalises and builds the (C + O)-plane targets on the device;
+    `rng` as in `train`.  Returns (state, iterations)."""
     all_losses, batch_time = AverageMeter(), AverageMeter()
     cls_losses, ofs_losses = AverageMeter(), AverageMeter()
+    rng = rng if rng is not None else _epoch_rng(state, epoch)
     end = time.time()
     for i, batch in enumerate(batches):
         state, metrics = train_step(state, batch["image"], batch["mask"],
-                                    batch["object_class"])
+                                    batch["object_class"], rng)
         iterations += 1
         all_losses.update(float(metrics["loss"]), batch_size)
         cls_losses.update(float(metrics["cls_loss"]), batch_size)
@@ -143,6 +148,12 @@ def train_compact(batches, state, train_step, batch_size, epoch,
             tb.log_value("train_ofs_loss", ofs_losses.avg,
                          int(iterations / log_freq))
     return state, iterations
+
+
+def _epoch_rng(state, epoch):
+    """The dropout generator of an epoch: on the state's device, seeded
+    with the epoch number."""
+    return torch.Generator(device=state.device).manual_seed(int(epoch))
 
 
 def _pad_batch(arr, multiple):

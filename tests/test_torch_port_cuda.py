@@ -369,3 +369,52 @@ def test_compact_train_step_on_card_matches_cpu(cuda_device):
             if float(du.abs().max()) >= 1e-6:
                 rel = float((s_card[k] - old[k] - du).norm() / du.norm())
                 assert rel <= 0.25, (k, rel)
+
+
+def _zoo_cases():
+    from mergenet_tpu_torch.models import (FCNResNet, FCNVGG16, PSPFPNet,
+                                           PSPNet, UperNet)
+    return [(lambda: FCNResNet(7, scale=8, layer=18), (64, 96), {}),
+            (lambda: FCNVGG16(7, ref_head=True, width_mult=0.125),
+             (224, 224), {}),
+            (lambda: UperNet(7, layer=18, fpn_dim=32), (64, 96), {}),
+            (lambda: PSPNet(7, layer=50), (64, 64), {"with_aux": True}),
+            (lambda: PSPFPNet(7, layer=18, fpn_dim=32, s2d_stem=True),
+             (64, 96), {})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(5))
+def test_zoo_forward_on_card_matches_cpu(cuda_device, case):
+    """The zoo's families (seeded weights, eval mode, float32, TF32 off)
+    on the card against the CPU: max abs error <= 1e-4 x max(1, largest
+    |logit|), the tolerance the CPU holds them to against JAX
+    (tests/test_torch_port_zoo.py); the PSPNet-r101 forward at 713x713
+    besides, on the card alone: finite, and its tiled prediction a
+    distribution per pixel.  No decode kernel launches."""
+    import copy
+    from mergenet_tpu_torch.models import get_model, init_model, tile_predict
+    from torch_port_helpers import randomize_batch_norm
+    make, hw, kw = _zoo_cases()[case]
+    cpu = randomize_batch_norm(init_model(make(), case), case + 1).eval()
+    card = copy.deepcopy(cpu).to(cuda_device)
+    x = torch.from_numpy(np.random.default_rng(case).random(
+        (2,) + hw + (3,)).astype(np.float32))
+    _build.reset_launches()
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        ref, got = cpu(x, **kw), card(x.to(cuda_device), **kw)
+        for r, g in zip(ref if kw else (ref,), got if kw else (got,)):
+            tol = 1e-4 * max(1.0, float(r.abs().max()))
+            assert float((g.cpu() - r).abs().max()) <= tol
+        if case == 3:
+            net = init_model(get_model(19, 0, "pspnet"), 0).to(
+                cuda_device).eval()
+            img = torch.rand(1, 713, 900, 3, device=cuda_device)
+            assert torch.isfinite(net(img)).all()
+            probs = tile_predict(net, img, 9, (713, 713),
+                                 n_model_classes=19)
+            assert probs.shape == (1, 713, 900, 9)
+            torch.testing.assert_close(probs.sum(-1), torch.ones_like(
+                probs[..., 0]), atol=1e-5, rtol=0)
+    assert not any(_build.LAUNCHES.values())

@@ -29,7 +29,10 @@ SCRIPT = textwrap.dedent("""
               "data.rle", "data.coco", "data.cocoeval", "decoder.segmenter",
               "decoder.csegment", "models.unet", "ops.targets",
               "ops.losses", "ops.metrics", "parallel.train",
-              "utils.checkpoint", "utils.logging", "utils.train_utils"):
+              "utils.checkpoint", "utils.logging", "utils.train_utils",
+              "models.fcn", "models.vgg", "models.tiling",
+              "utils.weight_import", "utils.caffe_import",
+              "utils.inference_utils", "utils.profiling"):
         assert "mergenet_tpu_torch." + m in mods, m
     from mergenet_tpu_torch.decoder import csegment
     from mergenet_tpu_torch.e2e import masks_to_results
@@ -51,6 +54,10 @@ SCRIPT = textwrap.dedent("""
     pgather(torch.arange(5, dtype=torch.int32),
             torch.arange(3, dtype=torch.int32))
     logits_at(PSPFPNet(5).eval(), torch.rand(1, 64, 64, 3), (16, 16))
+    from mergenet_tpu_torch.models import PSPNet, tile_predict
+    with torch.no_grad():
+        tile_predict(PSPNet(3, layer=18).eval(), torch.rand(1, 40, 40, 3),
+                     3, (32, 32))
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in %r
                     and sys.modules[n] is not None)
     assert not leaked, leaked

@@ -49,6 +49,7 @@ from mergenet_tpu_torch.convert import (flax_to_state_dict, load_flax_weights,
 from mergenet_tpu_torch.models import (VALID_ARCHS, PSPFPNet, UNet, get_model,
                                        init_model, logits_at, param_count,
                                        probs_at)
+from mergenet_tpu_torch.models.resnet import STAGE_BLOCKS
 from mergenet_tpu_torch.parallel import train as TT
 from mergenet_tpu_torch.utils import logging as tlog
 from mergenet_tpu_torch.utils import train_utils as TU
@@ -179,12 +180,26 @@ def test_get_model_unet_small_matches_flax():
 
 
 def test_get_model_names():
+    """Every arch name builds the class, the depth and the outputs of
+    JAX's `get_model` (built on the meta device: no memory, no init)."""
     assert isinstance(get_model(9, 10, "pspfpnet"), PSPFPNet)
     assert get_model(9, 10, "pspfpnet").num_outputs == 19
     for arch in VALID_ARCHS:
-        if arch not in ("unet", "unet_small", "pspfpnet"):
-            with pytest.raises(NotImplementedError, match="item 5"):
-                get_model(9, 10, arch)
+        ref = jget_model(9, 10, arch, verbose=False)
+        with torch.device("meta"):
+            got = get_model(9, 10, arch)
+        assert type(got).__name__ == type(ref).__name__, arch
+        outs = (got.Conv_0.out_channels if isinstance(got, UNet)
+                else got.num_outputs)
+        assert outs == getattr(ref, "num_outputs", 19) == 19, arch
+        for field in ("scale", "depth"):
+            if hasattr(ref, field):
+                assert getattr(got, field) == getattr(ref, field), (
+                    arch, field)
+        if hasattr(ref, "layer"):
+            blocks = [n for n, _ in got.ResNetBackbone_0.named_children()
+                      if n.startswith(("BasicBlock_", "Bottleneck_"))]
+            assert len(blocks) == sum(STAGE_BLOCKS[ref.layer]), arch
     with pytest.raises(ValueError):
         get_model(9, 10, "resnet50")
 
@@ -449,7 +464,8 @@ def test_sample_pngs_and_scalar_log(unet_ref, tmp_path, monkeypatch):
 
 def test_entry_points_need_the_card_and_refuse_unported_options():
     """No fallback: the default device is CUDA, which this machine lacks;
-    data parallelism and the aux head wait for later slices."""
+    data parallelism waits for a later slice (the aux head is ported:
+    `test_torch_port_aux.py`)."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -457,8 +473,8 @@ def test_entry_points_need_the_card_and_refuse_unported_options():
                               TT.make_optimizer())
     with pytest.raises(NotImplementedError, match="item 8"):
         TT.build_train_step(C, O, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TT.build_train_step_compact(C, SPIRAL_OFFSETS, aux_weight=0.4)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        TT.build_train_step_compact(C, SPIRAL_OFFSETS, mesh=object())
 
 
 # ------------------------------------------------ PSPFPNet compact step

@@ -129,3 +129,101 @@ def coco_stats(coco, results, img_ids=None, cocoeval=None):
         E.accumulate()
         E.summarize()
     return [float(v) for v in E.stats]
+
+
+def seeded_weights(model, seed):
+    """Every conv weight of a port `model` drawn ~ N(0, 1 / fan_in) from
+    a seeded generator (one pass: cheaper than `init_model`'s truncated
+    normal on the CPU, for tests that need some seeded weights, not
+    flax's init), then `randomize_batch_norm(model, seed + 1)`.  Returns
+    the model."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.ndim == 4:
+                fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+                p.copy_(torch.randn(p.shape, generator=g) * fan_in ** -0.5)
+    return randomize_batch_norm(model, seed + 1)
+
+
+def randomize_batch_norm(model, seed):
+    """Give every batch norm of a port `model` seeded non-trivial
+    statistics and affine (scale and var in [0.5, 1.5), bias and mean
+    ~ N(0, 0.1)) and every conv bias ~ N(0, 0.1), in place: a misplaced
+    tensor cannot hide behind flax's init (mean 0, var 1, scale 1).
+    Returns the model."""
+    import torch
+    from mergenet_tpu_torch.models.layers import SyncBatchNorm
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, SyncBatchNorm):
+                n = mod.weight.numel()
+                mod.weight.copy_(torch.rand(n, generator=g) + 0.5)
+                mod.bias.copy_(torch.randn(n, generator=g) * 0.1)
+                mod.running_mean.copy_(torch.randn(n, generator=g) * 0.1)
+                mod.running_var.copy_(torch.rand(n, generator=g) + 0.5)
+            elif isinstance(getattr(mod, "bias", None), torch.nn.Parameter):
+                mod.bias.copy_(torch.randn(mod.bias.shape, generator=g)
+                               * 0.1)
+    return model
+
+
+def _varint(x):
+    out = bytearray()
+    while True:
+        b = x & 0x7F
+        x >>= 7
+        if not x:
+            out.append(b)
+            return bytes(out)
+        out.append(b | 0x80)
+
+
+def _len_delim(field, payload):
+    return _varint((field << 3) | 2) + _varint(len(payload)) + payload
+
+
+def caffe_layer(name, ltype, blobs, bias_term=None):
+    """One caffe NetParameter `layer` (field 100) in the protobuf wire
+    format: name, type, each blob as a BlobProto (shape + packed float32
+    data) and, for a conv, `convolution_param.bias_term`."""
+    payload = _len_delim(1, name.encode()) + _len_delim(2, ltype.encode())
+    for arr in blobs:
+        arr = np.asarray(arr, np.float32)
+        shape = b"".join(_varint(1 << 3) + _varint(d) for d in arr.shape)
+        payload += _len_delim(7, _len_delim(7, shape) + _len_delim(
+            5, arr.astype("<f4").tobytes()))
+    if bias_term is not None:
+        payload += _len_delim(106, _varint(2 << 3) + _varint(int(bias_term)))
+    return _len_delim(100, payload)
+
+
+def write_pspnet_caffemodel(path, model, layer):
+    """Write a port `PSPNet`'s weights as a caffemodel with the released
+    PSPNet's layer names (`utils.weight_import.caffe_pspnet_mapping`):
+    each conv's OIHW weight (+ bias on the two classifiers, bias_term
+    false elsewhere) as a `ConvolutionData` layer, each batch norm as
+    `<conv>/bn` `BNData` blobs gamma, beta, mean, var.  Layers are
+    written one at a time (the full PSPNet-r101 is ~270 MB).  Returns
+    the number of bytes written."""
+    from mergenet_tpu_torch.utils.weight_import import caffe_pspnet_mapping
+    n = 0
+    with open(path, "wb") as f:
+        for cname, cpath, bnpath in caffe_pspnet_mapping(layer):
+            conv = model.get_submodule(cpath.replace("/", "."))
+            blobs = [conv.weight.detach().float().cpu().numpy()]
+            if bnpath is None:
+                blobs.append(conv.bias.detach().float().cpu().numpy())
+            rec = caffe_layer(cname, "ConvolutionData", blobs,
+                              bias_term=bnpath is None)
+            if bnpath is not None:
+                bn = model.get_submodule(bnpath.replace("/", "."))
+                rec += caffe_layer(cname + "/bn", "BNData", [
+                    t.detach().float().cpu().numpy() for t in (
+                        bn.weight, bn.bias, bn.running_mean,
+                        bn.running_var)])
+            f.write(rec)
+            n += len(rec)
+    return n
