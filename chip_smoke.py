@@ -44,13 +44,25 @@ after:
   PSPFPNet-r50, the saved maps decoded by
   `run_segmentation_device(mode="hier")` on the card (floodscan,
   absorb, tgather) and on the CPU, and their mask-AP;
+- the data slice: the certification dataset regenerated by the port's
+  generator (`data/synthetic.py`), held equal to the committed val json
+  and bench images;
+- certification (c): the committed bench_ckpt.npz as a float32 net on
+  the 50 regenerated val images, hier and exact decodes on the card
+  (`certify.score`; floodscan, absorb, tgather), mask-AP against the
+  JAX package's;
+- certification (d): seed 0 trained on the regenerated data through the
+  port's loader (`data/pipeline.py`, `certify.train_seed`), 24 epochs,
+  then scored with hier decodes;
 - PSPNet-r101's aux head in compact train steps (batch 16, 768x768,
   aux_weight 0.4, bf16), after one step held against the CPU's with
   the same dropout masks.
 
 Every check raises; the exit code is 0 only when all phases pass.
 Prints one line per phase, `train {...}`, `zoo {...}`,
-`class_inference {...}`, `staged {...}` and `train_aux {...}` lines
+`class_inference {...}`, `staged {...}`, `data {...}`,
+`certification_c {...}`, `certification_d {...}` and `train_aux {...}`
+lines
 (times, throughput, peak memory, FLOPs, shares of the bf16 peak), the
 new phases' spans (`utils/profiling.Stopwatch`), the summary, then the
 card, the kernels line, and last `{"ok": true, "device": {...}}`.
@@ -60,8 +72,8 @@ tests/fixtures/certification512 and the tests' shared data makers in
 tests/torch_port_helpers.py); imports torch, numpy, pytest (through
 those helpers) and the standard library besides the port.  Writes
 nothing outside mergenet_tpu_torch/_build/ (the train phase's
-checkpoints, the synthetic caffemodel and the inference phases' maps go
-there and are removed).
+checkpoints, the synthetic caffemodel, the inference phases' maps, the
+regenerated dataset and the trained seed go there).
 """
 
 import json
@@ -77,7 +89,7 @@ FIX = os.path.join(HERE, "tests", "fixtures", "certification512")
 sys.path.insert(0, os.path.join(HERE, "tests"))
 from torch_port_helpers import (FIXTURE_OFFSETS,  # noqa: E402
                                 JAX_AP, SERVE_KW, SPIRAL_OFFSETS,
-                                absorb_planes, coco_stats,
+                                absorb_planes,
                                 randomize_batch_norm, wide_classes,
                                 write_pspnet_caffemodel)
 
@@ -206,6 +218,24 @@ CAFFE_MEAN_RGB = (123.68, 116.779, 103.939)  # data/dataset.py's caffe mode
 TRAIN_AUX_WEIGHT = 0.4
 TRAIN_AUX_STEPS, TRAIN_AUX_WARMUP = 5, 2
 
+# the certification workload (scripts/make_certification_fixtures.py,
+# the committed summary.json's config, `certify.regenerate`'s defaults):
+# the dataset regenerated by the port's generator, then (c) the committed
+# bench_ckpt.npz scored on the 50 val images and (d) seed 0 trained
+# through the port's loader
+# (c): the float32 net's maps on val images 0-7 against the committed
+# probs_<i>.npz (float16, a TPU's float32 net before its parameters were
+# stored as float16); the JAX package's net on the CPU with these weights
+# gives at most 0.051 and 0.00056 (`tests/jax_certification_ap.py c`)
+CERT_PROBS_MAX_ABS = 0.1
+CERT_PROBS_ARGMAX_DIFFER = 0.002
+# the reference's summary.json, seed 0 (the float32 net): a reading
+CERT_SUMMARY_SEED0 = {"hier": (0.6895, 0.8145), "exact": (0.6489, 0.8092)}
+# (d): the reference's 24 epochs, batch 8, 384^2 crops, lr 0.02; its
+# three seeds' lowest hier AP (0.6693) less their spread (0.6919 - 0.6693)
+CERT_D_EPOCHS = 24
+CERT_D_MIN_HIER_AP = 0.6467
+
 
 def phase(name):
     elapsed = time.perf_counter() - T0
@@ -290,6 +320,7 @@ def certify(drive):
     greedy on fixture 0 on the host."""
     import numpy as np
     import torch
+    from mergenet_tpu_torch import certify as CT
     from mergenet_tpu_torch import io
     from mergenet_tpu_torch.data import COCO
     from mergenet_tpu_torch.decoder import csegment
@@ -332,8 +363,7 @@ def certify(drive):
 
     t0 = time.perf_counter()
     coco = COCO(os.path.join(FIX, "val_ann.json"))
-    ap = {proc: {name: tuple(coco_stats(coco, r, None if proc == "a"
-                                        else ids)[:2])
+    ap = {proc: {name: CT.coco_ap(coco, r, None if proc == "a" else ids)
                  for name, r in res.items()} for proc in ("a", "b")}
     score_s = time.perf_counter() - t0
     for proc, title in (("a", "every image of val_ann.json"),
@@ -1028,6 +1058,7 @@ def staged_phase(drive, smi, sw):
     import numpy as np
     import torch
 
+    from mergenet_tpu_torch import certify as CT
     from mergenet_tpu_torch import io
     from mergenet_tpu_torch.convert import load_flax_weights
     from mergenet_tpu_torch.data import COCO
@@ -1093,7 +1124,7 @@ def staged_phase(drive, smi, sw):
                 results += masks_to_results(
                     mask[None], np.asarray(list(classes) + [-1],
                                            np.int32)[None], [i], cats)
-        ap, ap50 = coco_stats(coco, results, [0, 1, 2, 3])[:2]
+        ap, ap50 = CT.coco_ap(coco, results, [0, 1, 2, 3])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print("  staged: heads %.2f s, card decodes %.2f s, CPU decodes %.2f s "
@@ -1224,6 +1255,177 @@ def train_aux_phase(drive, smi, sw):
         raise AssertionError("aux train steps: losses %s, aux %s"
                              % (r["losses"], r["aux_losses"]))
     return out
+
+
+def data_phase(smi, sw):
+    """The certification dataset regenerated by the port's generator
+    (`certify.regenerate`) under `_build/cert_data`: its val
+    json must equal the committed val_ann.json and its first four val
+    images the committed bench_img*.png.  Returns (readings, data
+    directory)."""
+    import json
+    import shutil
+
+    import numpy as np
+
+    from mergenet_tpu_torch import certify as CT
+    from mergenet_tpu_torch import io
+
+    data_dir = os.path.join(HERE, "mergenet_tpu_torch", "_build",
+                            "cert_data")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    with sw.span("data generate"):
+        _, n = CT.regenerate(data_dir)
+    gen_s = sw.totals["data generate"]
+    ann = os.path.join(data_dir, "annotations", "instancesonly_val.json")
+    ref_path = os.path.join(FIX, "val_ann.json")
+    with open(ann) as f, open(ref_path) as g:
+        json_equal = json.load(f) == json.load(g)
+    with open(ann, "rb") as f, open(ref_path, "rb") as g:
+        bytes_equal = f.read() == g.read()
+    imgs_equal = [bool(np.array_equal(io.read_png_rgb(os.path.join(
+        data_dir, "val", "val_%05d.png" % k)), ref))
+        for k, ref in enumerate(bench_images())]
+    out = {"seconds": gen_s, "images": n, "images_per_s": n / gen_s,
+           "val_json_equal": json_equal, "val_json_bytes_equal": bytes_equal,
+           "bench_images_equal": imgs_equal}
+    print("  %d images of 512x1024 in %.2f s (%.2f images/s on the host); "
+          "val json equal to val_ann.json: %s (bytes: %s); val_00000-00003 "
+          "equal to bench_img*.png: %s" % (n, gen_s, n / gen_s, json_equal,
+                                          bytes_equal, imgs_equal),
+          flush=True)
+    if not json_equal or not all(imgs_equal):
+        raise AssertionError("the regenerated dataset differs from the "
+                             "committed fixtures")
+    return out, data_dir
+
+
+def cert_c_phase(drive, smi, sw, data_dir):
+    """Procedure (c): the committed bench_ckpt.npz (float16 parameters
+    widened) as a float32 net (TF32 off) on the 50 regenerated val
+    images, hier and exact decodes on the card, scored with the port's
+    COCOeval; gates: the maps of images 0-7 against the committed
+    fixtures, zero overflow, each AP within CERT_JAX_AP_TOL of JAX's."""
+    import numpy as np
+
+    from mergenet_tpu_torch import certify as CT
+    from mergenet_tpu_torch import io
+
+    offsets = io.load_offsets(FIX)
+    net = CT.load_bench_net(os.path.join(FIX, "bench_ckpt.npz"),
+                            9 + len(offsets))
+    diffs = []
+
+    def on_probs(n, img_id, cp, sp):
+        if img_id < 8:
+            fcp, fsp = io.load_probs(FIX, img_id)
+            d = np.abs(np.concatenate([cp, sp], -1)
+                       - np.concatenate([fcp, fsp], -1))
+            diffs.append({"max_abs": float(d.max()),
+                          "mean_abs": float(d.mean()),
+                          "argmax_differ": float(
+                              (cp.argmax(-1) != fcp.argmax(-1)).mean())})
+
+    with sw.span("certification (c)"):
+        r = drive("certification (c)", lambda: CT.score(
+            net, data_dir, 9, offsets, ("hier", "exact"),
+            on_probs=on_probs),
+            ("floodscan", "absorb", "tgather"))
+    del net
+    worst = {k: max(d[k] for d in diffs) for k in diffs[0]}
+    print("  net maps on val images 0-7 vs the committed probs_<i>.npz: "
+          "max abs %.4f (limit %.2f), mean abs %.3e, argmax differing %.5f "
+          "(limit %.4f)" % (worst["max_abs"], CERT_PROBS_MAX_ABS,
+                            worst["mean_abs"], worst["argmax_differ"],
+                            CERT_PROBS_ARGMAX_DIFFER), flush=True)
+    for name in ("hier", "exact"):
+        jref, ref = JAX_AP["c"][name], CERT_SUMMARY_SEED0[name]
+        print("  (c) %-5s AP %.4f AP50 %.4f | JAX (CPU) AP %.4f AP50 %.4f | "
+              "summary.json seed 0 AP %.4f AP50 %.4f" % (
+                  name, r[name][0], r[name][1], jref[0], jref[1], ref[0],
+                  ref[1]), flush=True)
+    print("  (c) %d images; overflow %s; net %.2f s, "
+          "hier %.2f s, exact %.2f s (%s)" % (
+              r["images"], r["overflow"],
+              r["times_s"]["net"], r["times_s"]["hier"],
+              r["times_s"]["exact"], smi), flush=True)
+    gates = [("maps max abs", worst["max_abs"] <= CERT_PROBS_MAX_ABS),
+             ("maps argmax", worst["argmax_differ"]
+              <= CERT_PROBS_ARGMAX_DIFFER),
+             ("zero overflow", not any(r["overflow"].values())),
+             ("hier AP within %.3f of JAX's" % CERT_JAX_AP_TOL,
+              abs(r["hier"][0] - JAX_AP["c"]["hier"][0]) <= CERT_JAX_AP_TOL),
+             ("exact AP within %.3f of JAX's" % CERT_JAX_AP_TOL,
+              abs(r["exact"][0] - JAX_AP["c"]["exact"][0])
+              <= CERT_JAX_AP_TOL)]
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        raise AssertionError("certification (c) gates failed: %s" % failed)
+    return {"ap": {k: r[k] for k in ("hier", "exact")},
+            "jax_ap": {k: JAX_AP["c"][k] for k in ("hier", "exact")},
+            "summary_seed0": CERT_SUMMARY_SEED0, "maps_vs_fixtures": diffs,
+            "overflow": r["overflow"], "times_s": r["times_s"],
+            "images": r["images"],
+            "phase_s": sw.totals["certification (c)"]}
+
+
+def cert_d_phase(drive, smi, sw, data_dir):
+    """Procedure (d): seed 0 trained on the regenerated data through the
+    port's loader (`certify.train_seed`: the compact pipeline, 24 epochs
+    of batch 8 at 384^2, float32, TF32 off, a validation pass per epoch),
+    then `model_best` scored with hier decodes on the 50 val images;
+    gates: the loss falls, hier AP >= CERT_D_MIN_HIER_AP."""
+    import shutil
+
+    from mergenet_tpu_torch import certify as CT
+    from mergenet_tpu_torch import io
+
+    offsets = io.load_offsets(FIX)
+    exp = os.path.join(HERE, "mergenet_tpu_torch", "_build", "cert_seed0")
+    shutil.rmtree(exp, ignore_errors=True)
+    with sw.span("certification (d) loader alone"):
+        rate, n_loaded = CT.loader_rate(data_dir)
+    with sw.span("certification (d) train"):
+        hist = drive("certification (d) train", lambda: CT.train_seed(
+            exp, data_dir, seed=0, epochs=CERT_D_EPOCHS), ())
+    net = CT.load_trained(exp)
+    with sw.span("certification (d) score"):
+        r = drive("certification (d) score", lambda: CT.score(
+            net, data_dir, 9, offsets, ("hier",)),
+            ("floodscan", "absorb", "tgather"))
+    del net
+    shutil.rmtree(exp, ignore_errors=True)
+    steps = sum(hist["steps"])
+    step_s = sum(hist["step_s"])
+    out = {"loader_images_per_s": rate, "loader_images": n_loaded,
+           "train_images_per_s": steps * hist["batch_size"] / step_s,
+           "epoch_s_median": sorted(hist["epoch_s"])[len(hist["epoch_s"])
+                                                     // 2],
+           "epoch_s": hist["epoch_s"], "loss": hist["loss"],
+           "val": hist["val"], "steps": steps,
+           "loader_wait_s": sum(hist["loader_wait_s"]),
+           "train_s": sw.totals["certification (d) train"],
+           "hier": r["hier"], "overflow": r["overflow"],
+           "times_s": r["times_s"]}
+    print("  (d) loader alone %.1f images/s (%d images); training %.1f "
+          "images/s over %d steps (batch %d, 384^2, float32), epoch %.2f s "
+          "(median, with its validation pass), loader waits %.2f s of %.2f "
+          "s; loss %.4f -> %.4f; best val %.4f (%s)" % (
+              rate, n_loaded, out["train_images_per_s"], steps,
+              hist["batch_size"], out["epoch_s_median"],
+              out["loader_wait_s"], step_s, hist["loss"][0],
+              hist["loss"][-1], hist["best_val"], smi), flush=True)
+    print("  (d) hier AP %.4f AP50 %.4f on %d images (limit AP >= %.4f); "
+          "overflow %s" % (r["hier"][0], r["hier"][1], r["images"],
+                           CERT_D_MIN_HIER_AP, r["overflow"]), flush=True)
+    if not hist["loss"][-1] < hist["loss"][0]:
+        raise AssertionError("certification (d): the loss did not fall: %s"
+                             % hist["loss"])
+    if r["hier"][0] < CERT_D_MIN_HIER_AP:
+        raise AssertionError("certification (d): hier AP %.4f < %.4f"
+                             % (r["hier"][0], CERT_D_MIN_HIER_AP))
+    return out
+
 
 
 def main():
@@ -1621,8 +1823,8 @@ def main():
         ref = logits_at(net32, x32, (DH, DW))
     del net32
     net16 = load_flax_weights(PSPFPNet(num_outputs).to(torch.bfloat16),
-                              params, batch_stats)
-    # the user entry point; it moves net16 to the card in bf16
+                              params, batch_stats).to(cuda)
+    # the user entry point; it runs a copy of net16 on the card in bf16
     infer = e2e.build_e2e_infer(net16, num_classes, offsets,
                                 decode_size=(DH, DW), dtype=torch.bfloat16)
     x16 = x32.to(torch.bfloat16)
@@ -1845,12 +2047,27 @@ def main():
           "maps -> run_segmentation_device(mode='hier')")
     staged = staged_phase(drive, smi, sw)
     print("staged " + json.dumps({"card": smi, **staged}), flush=True)
+    phase("data: regenerate the certification dataset (data/synthetic.py, "
+          "seed 100, 60 + 50 images of 512x1024)")
+    data, data_dir = data_phase(smi, sw)
+    print("data " + json.dumps({"card": smi, **data}), flush=True)
+    phase("certification (c): bench_ckpt on the 50 regenerated val images "
+          "(hier and exact)")
+    cert_c = cert_c_phase(drive, smi, sw, data_dir)
+    print("certification_c " + json.dumps({"card": smi, **cert_c}),
+          flush=True)
+    phase("certification (d): train seed 0 through the loader, %d epochs, "
+          "then score hier" % CERT_D_EPOCHS)
+    cert_d = cert_d_phase(drive, smi, sw, data_dir)
+    print("certification_d " + json.dumps({"card": smi, **cert_d}),
+          flush=True)
     phase("train: PSPNet-r101 with the aux head, batch %d, %d^2 crops, "
           "aux_weight %g, bf16" % (TRAIN_BATCH, TRAIN_CROP,
                                    TRAIN_AUX_WEIGHT))
     train_aux = train_aux_phase(drive, smi, sw)
     print("train_aux " + json.dumps({"card": smi, **train_aux}), flush=True)
-    for name in ("zoo", "class inference", "train aux"):
+    for name in ("zoo", "class inference", "train aux",
+                 "certification (d) train"):
         if any(paths[name].values()):
             raise AssertionError("the %s path launched a decode kernel: %s"
                                  % (name, paths[name]))
@@ -1905,7 +2122,8 @@ def main():
                "serve_2frames_fallback_ms": serve_tight_ms,
                "gather_bench": bench_rows, "certification": cert,
                "train": train, "zoo": zoo, "class_inference": cls_inf,
-               "staged": staged, "train_aux": train_aux,
+               "staged": staged, "train_aux": train_aux, "data": data,
+               "certification_c": cert_c, "certification_d": cert_d,
                "launches_by_path": paths,
                "total_s": time.perf_counter() - T0}
     print("summary " + json.dumps(summary), flush=True)

@@ -1,7 +1,16 @@
-"""Evaluation data of the port (`mergenet_tpu.data` is the reference):
-the COCO json API, RLE masks and mask-AP.  The dataset classes come with
-the data slice."""
+"""Data of the port (`mergenet_tpu.data` is the reference): the COCO json
+API, RLE masks and mask-AP, the datasets and loaders, the compact
+training pipeline (`pipeline.py`, the counterpart of the reference's
+grain pipeline), the synthetic generator and cv2's image operations in
+numpy (`imgproc.py`)."""
 
+from .dataset import (AllDataset, OffsetDataset, ClassDataset, COCOTestset,
+                      DataLoader)
 from .coco import COCO
 
-__all__ = ["COCO"]
+# reference recipe compatibility: egs/coco scripts import COCODataset
+# (the original `egs/coco/local/train.py:16`, a stale name for AllDataset)
+COCODataset = AllDataset
+
+__all__ = ["AllDataset", "OffsetDataset", "ClassDataset", "COCOTestset",
+           "COCODataset", "DataLoader", "COCO"]

@@ -1,5 +1,6 @@
 """COCO mask API (RLE) — a from-scratch numpy implementation (a copy of
-`mergenet_tpu/data/rle.py`, without cv2).
+`mergenet_tpu/data/rle.py`; polygons are filled by `imgproc.fill_poly`,
+cv2's fillPoly in numpy).
 
 The environment has no pycocotools, so this module provides the subset of
 `pycocotools.mask` the pipeline needs, byte-compatible with the COCO
@@ -10,7 +11,7 @@ compressed-RLE string format so results interoperate with standard tooling:
     merge(rles)         union (or intersection) of RLEs
     area(rle)           pixel count
     iou(dt, gt, iscrowd)  pairwise mask IoU
-    frPyObjects(objs, h, w)  uncompressed RLE -> RLE (no polygons yet)
+    frPyObjects(objs, h, w)  polygon / uncompressed RLE -> RLE
 
 RLE convention (per the COCO spec): counts alternate runs of 0s and 1s in
 Fortran (column-major) order, starting with the count of 0s.  The
@@ -157,13 +158,15 @@ def iou(dt, gt, iscrowd=None):
 
 
 def frPyObjects(objs, h, w):
-    """Convert uncompressed RLE(s) to compressed RLE.
+    """Convert polygon(s) / uncompressed RLE(s) to RLE.
 
-    Mirrors pycocotools.mask.frPyObjects for RLE dicts: a single dict
-    returns one RLE, a list of dicts a list.  Polygons raise
-    NotImplementedError: the reference fills them with cv2, which the
-    port does not use; their fill comes with the port's data slice
-    (`data/dataset.py`), which has to replace cv2 there too."""
+    Mirrors pycocotools.mask.frPyObjects as the reference does: a list of
+    polygons (flat [x0, y0, x1, y1, ...]) returns a list of RLEs, a list
+    of dicts a list, a single dict one RLE.  Polygons are filled as the
+    reference fills them (`cv2.fillPoly` on vertices rounded half to
+    even), by `imgproc.poly_mask`."""
+    from .imgproc import poly_mask
+
     if isinstance(objs, dict):
         if "counts" in objs:  # uncompressed RLE
             return {"size": list(objs["size"]),
@@ -173,6 +176,7 @@ def frPyObjects(objs, h, w):
         return []
     if isinstance(objs[0], dict):
         return [frPyObjects(o, h, w) for o in objs]
-    raise NotImplementedError(
-        "polygon segmentations are not supported yet: their fill comes "
-        "with the port's data slice (the reference fills them with cv2)")
+    if isinstance(objs[0], (list, tuple, np.ndarray)):
+        return [encode(poly_mask(p, h, w)) for p in objs]
+    # single flat polygon
+    return [encode(poly_mask(objs, h, w))]

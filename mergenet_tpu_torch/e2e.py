@@ -1,6 +1,8 @@
 """End-to-end frame: net forward + merge decode in memory, no host round
 trip between them (`mergenet_tpu/utils/e2e.py` is the reference)."""
 
+import copy
+
 import numpy as np
 import torch
 
@@ -36,8 +38,10 @@ def build_e2e_infer(model, num_classes, offsets, decode_size=None,
     mean-subtracted BGR of `ClassDataset(caffe=True)`.  They are cast to
     `dtype` (None: float32); the net runs at full resolution and emits
     its maps at `decode_size` (default half resolution); the mask is
-    upsampled back with nearest neighbour.  `model` is moved to
-    `device` (None means CUDA) and `dtype`.
+    upsampled back with nearest neighbour.  A copy of `model` runs, on
+    `device` (None means CUDA) with every parameter and buffer cast to
+    `dtype` (the reference bench's bf16 route, `bench.py:271-274`) and
+    is `infer.model`; the caller's module is left as it was.
 
     decode_mode: 'hier' (default) decodes the raw logits with
     `decode_hierarchical` (from_logits=True, relabel=True; capacities
@@ -50,7 +54,8 @@ def build_e2e_infer(model, num_classes, offsets, decode_size=None,
         raise ValueError("decode_mode must be 'hier' or 'exact', got %r"
                          % (decode_mode,))
     dev = resolve_device(device)
-    model = model.to(device=dev, dtype=dtype or torch.float32).eval()
+    model = copy.deepcopy(model).to(device=dev,
+                                    dtype=dtype or torch.float32).eval()
     offsets = tuple(tuple(int(v) for v in o) for o in offsets)
     kw = dict(same_different_bias=same_different_bias,
               object_merge_factor=object_merge_factor,
@@ -92,6 +97,7 @@ def build_e2e_infer(model, num_classes, offsets, decode_size=None,
             classes.append(inst_class)
         return torch.stack(masks), torch.stack(classes)
 
+    infer.model = model  # the copy it runs
     return infer
 
 

@@ -1,6 +1,7 @@
 """Readers for the committed fixtures: the Flax-tree npz checkpoint,
-8-bit RGB PNGs, and the certification probability maps; and an 8-bit
-PNG writer (grayscale or RGB) for the training samples.
+PNGs (every non-interlaced colour type, read as cv2 reads them), and
+the certification probability maps; and an 8-bit PNG writer (grayscale
+or RGB) for the training samples and the synthetic dataset.
 
 Standard library and numpy only: the GPU machine has no cv2 or PIL."""
 
@@ -69,20 +70,30 @@ def _unfilter_row(ftype, row, prev, bpp):
     return np.frombuffer(bytes(out), np.uint8)
 
 
+#: samples per pixel of each PNG colour type
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
 def read_png_rgb(path):
-    """(H, W, 3) uint8 from an 8-bit RGB, non-interlaced PNG (colour
-    type 2) — the format of the committed bench_img*.png files."""
+    """(H, W, 3) uint8 RGB of a non-interlaced PNG, as `cv2.imread` (then
+    BGR -> RGB) gives it: RGB as stored; grey replicated to three
+    channels (1, 2 and 4-bit grey scaled to 0-255); palette indices
+    looked up in PLTE; alpha dropped; 16-bit samples keep their high
+    byte.  Interlaced files and unknown types raise ValueError naming
+    them."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError("%s is not a PNG file" % path)
-    pos, idat, hdr = 8, [], None
+    pos, idat, hdr, plte = 8, [], None, None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         ctype = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + length]
         if ctype == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(body)
         elif ctype == b"IEND":
@@ -91,21 +102,48 @@ def read_png_rgb(path):
     if hdr is None:
         raise ValueError("%s has no IHDR chunk" % path)
     W, H, depth, color, _, _, interlace = hdr
-    if depth != 8 or color != 2 or interlace != 0:
-        raise ValueError("only 8-bit RGB non-interlaced PNGs are supported "
-                         "(got depth=%d color=%d interlace=%d)"
-                         % (depth, color, interlace))
+    if interlace != 0:
+        raise ValueError("%s: interlaced (Adam7) PNGs are not supported"
+                         % path)
+    if color not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16) or (
+            depth < 8 and color not in (0, 3)) or (depth == 16
+                                                    and color == 3):
+        raise ValueError("%s: unsupported PNG colour type %d at bit depth %d"
+                         % (path, color, depth))
+    if color == 3 and plte is None:
+        raise ValueError("%s: palette PNG without a PLTE chunk" % path)
+    ch = _PNG_CHANNELS[color]
+    row_bytes = (W * ch * depth + 7) // 8
+    bpp = max(1, ch * depth // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    stride = W * 3 + 1
-    if raw.size != H * stride:
-        raise ValueError("%s: decompressed size %d != %d"
+    stride = row_bytes + 1
+    if raw.size < H * stride:
+        raise ValueError("%s: decompressed size %d < %d"
                          % (path, raw.size, H * stride))
-    raw = raw.reshape(H, stride)
-    img = np.empty((H, W * 3), np.uint8)
-    prev = np.zeros(W * 3, np.uint8)
+    raw = raw[:H * stride].reshape(H, stride)
+    rows = np.empty((H, row_bytes), np.uint8)
+    prev = np.zeros(row_bytes, np.uint8)
     for i in range(H):
-        prev = img[i] = _unfilter_row(int(raw[i, 0]), raw[i, 1:], prev, 3)
-    return img.reshape(H, W, 3)
+        prev = rows[i] = _unfilter_row(int(raw[i, 0]), raw[i, 1:], prev, bpp)
+    if depth == 16:  # big-endian samples: keep the high byte
+        samples = rows.reshape(H, W * ch, 2)[..., 0]
+    elif depth == 8:
+        samples = rows
+    else:
+        bits = np.unpackbits(rows, axis=1).reshape(H, -1, depth)[:, :W]
+        samples = (bits * (1 << np.arange(depth - 1, -1, -1))).sum(
+            -1).astype(np.uint8)
+        if color == 0:
+            samples = samples * np.uint8(255 // ((1 << depth) - 1))
+    samples = samples.reshape(H, W, ch)
+    if color == 3:
+        idx = samples[..., 0]
+        if int(idx.max(initial=0)) >= len(plte):
+            raise ValueError("%s: palette index past PLTE" % path)
+        return plte[idx]
+    if ch <= 2:  # grey (+ alpha)
+        return np.repeat(samples[..., :1], 3, axis=2)
+    return np.ascontiguousarray(samples[..., :3])
 
 
 def _chunk(ctype, body):

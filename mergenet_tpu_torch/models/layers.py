@@ -12,6 +12,8 @@ dtype at use, so a model holding float32 parameters runs in bf16 when
 its input is bf16 (the reference's `dtype=jnp.bfloat16`: float32
 params, bf16 compute); batch norm keeps float32 statistics."""
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -139,6 +141,7 @@ class StemConv7(nn.Module):
         super().__init__()
         self.s2d = s2d
         self.weight = nn.Parameter(torch.empty(features, cin, 7, 7))
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))  # nn.Conv2d's
 
     def forward(self, x):
         w = self.weight.to(x.dtype)
@@ -185,6 +188,7 @@ class ConcatFusionConv(nn.Module):
     def __init__(self, cin, features):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(features, cin, 3, 3))
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))  # nn.Conv2d's
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, parts):

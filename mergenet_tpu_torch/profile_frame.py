@@ -56,7 +56,7 @@ def main(argv=None):
     params, stats = io.load_bench_checkpoint(
         os.path.join(FIX, "bench_ckpt.npz"))
     net = load_flax_weights(PSPFPNet(9 + len(offsets)).to(torch.bfloat16),
-                            params, stats)
+                            params, stats).to(cuda)
     infer = e2e.build_e2e_infer(net, 9, offsets, decode_size=(512, 1024),
                                 dtype=torch.bfloat16)
     img = io.read_png_rgb(os.path.join(FIX, "bench_img.png"))

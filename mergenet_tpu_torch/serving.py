@@ -16,6 +16,8 @@ flagged frame with the exact mode (`run_segmentation_device`, whose
 capacities are measured, so nothing can overflow) on the sigmoid
 probabilities at the decode size."""
 
+import copy
+
 import torch
 
 from . import resolve_device
@@ -34,14 +36,18 @@ def build_serving_pipeline(model, num_classes, offsets, decode_size=None,
     imgs: (B, H, W, 3) float images (numpy or tensor).  Masks come back
     at full resolution ((B, H, W) int32, ids 1..K per frame), with
     inst_classes (B, M) int32 mapping ids to classes (padded with -1).
-    The net runs in `dtype` (None: float32) on `device` (None means
-    CUDA) and emits its maps at `decode_size` (default half
+    A copy of `model` runs, with every parameter and buffer cast to
+    `dtype` (None: float32; the reference bench's bf16 route), on
+    `device` (None means CUDA) and is `serve.model`; the caller's module
+    is left as it was.
+    The net emits its maps at `decode_size` (default half
     resolution).  With `overflow_fallback=True` a third element follows:
     the per-frame overflow counts (B,) int32 (edges + pairs dropped +
     frozen components; 0 means the budgets held), and every frame with
     a nonzero count is re-decoded with the exact mode."""
     dev = resolve_device(device)
-    model = model.to(device=dev, dtype=dtype or torch.float32).eval()
+    model = copy.deepcopy(model).to(device=dev,
+                                    dtype=dtype or torch.float32).eval()
     offsets = tuple(tuple(int(v) for v in o) for o in offsets)
     hyper = dict(same_different_bias=same_different_bias,
                  object_merge_factor=object_merge_factor,
@@ -97,4 +103,5 @@ def build_serving_pipeline(model, num_classes, offsets, decode_size=None,
                                                  inst_classes.shape[1])
         return masks, inst_classes, overflow
 
+    serve.model = model  # the copy it runs
     return serve

@@ -63,11 +63,12 @@ def frame_pair():
 
 def _port_run(frame_pair, x, key):
     """The port's (masks, classes, net logits) for input `x`, computed
-    once per key; the logits are the net's output inside the entry."""
+    once per key; the logits are the net's output inside the entry (the
+    copy of `net` that it runs, `infer.model`)."""
     (infer, net), cache = frame_pair[1], frame_pair[3]
     if key not in cache:
         seen = []
-        hook = net.register_forward_hook(
+        hook = infer.model.register_forward_hook(
             lambda mod, args, out: seen.append(out.detach().clone()))
         try:
             with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -138,3 +139,28 @@ def test_entry_points_default_to_the_card():
         decode_hierarchical(cp, cp[..., :1], 2, ((0, 1),))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_e2e_infer(PSPFPNet(19), 9, ((0, 1),) * 10)
+
+
+def test_builders_leave_the_callers_module_as_it_was():
+    """`build_e2e_infer` and `build_serving_pipeline` run a copy of the
+    caller's module: after building a bf16 infer on the CPU, every
+    parameter and buffer of the caller's model is still float32 and
+    unchanged, and the module is still in train mode.  (The CPU has no
+    bf16 antialiased resize, so the bf16 infer is built, not run.)"""
+    from mergenet_tpu_torch.models import init_model
+    from mergenet_tpu_torch.serving import build_serving_pipeline
+    from torch_port_helpers import randomize_batch_norm
+    model = randomize_batch_norm(init_model(
+        PSPFPNet(5, layer=18, fpn_dim=16), 5), 6)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    offsets = ((0, 1), (1, 0), (2, 2))
+    for build in (build_e2e_infer, build_serving_pipeline):
+        fn = build(model, 2, offsets, decode_size=(16, 32),
+                   dtype=torch.bfloat16, device="cpu")
+        assert fn.model is not model
+        assert next(fn.model.parameters()).dtype == torch.bfloat16
+        assert model.training
+        for k, v in model.state_dict().items():
+            assert v.dtype == before[k].dtype, k
+            assert torch.equal(v, before[k]), k
+        assert all(p.dtype == torch.float32 for p in model.parameters())

@@ -165,8 +165,12 @@ def test_rle_string_codec_and_uncompressed_rle_match_reference():
     assert (trle.frPyObjects([rle, rle], 40, 50)
             == jrle.frPyObjects([rle, rle], 40, 50))
     assert trle.frPyObjects([], 40, 50) == []
-    with pytest.raises(NotImplementedError, match="data slice"):
-        trle.frPyObjects([[1.0, 1.0, 9.0, 1.0, 9.0, 9.0]], 40, 50)
+    # polygons (filled by the port's cv2.fillPoly twin), a list and a
+    # single flat one, with a vertex on a half and one past the border
+    polys = [[1.0, 1.0, 9.0, 1.0, 9.0, 9.0], [3.5, 2.0, 52.0, 20.4, 7.0, 39.6]]
+    assert trle.frPyObjects(polys, 40, 50) == jrle.frPyObjects(polys, 40, 50)
+    assert (trle.frPyObjects(polys[1], 40, 50)
+            == jrle.frPyObjects(polys[1], 40, 50))
 
 
 def test_masks_to_results_matches_reference():

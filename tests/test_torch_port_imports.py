@@ -1,7 +1,8 @@
-"""The port runs where the GPU machine has no jax, flax, cv2 or PIL, and
-never imports the JAX package: every module of `mergenet_tpu_torch` and
-`chip_smoke.py` import, and a small decode and forward run, in a
-subprocess where those modules are blocked."""
+"""The port runs where the GPU machine has no jax, flax, cv2, PIL or
+grain, and never imports the JAX package: every module of
+`mergenet_tpu_torch` and `chip_smoke.py` import, and a small decode, a
+forward and the data slice (generate, read, resize, fill a polygon,
+load a batch) run, in a subprocess where those modules are blocked."""
 
 import os
 import pathlib
@@ -11,7 +12,7 @@ import sys
 import textwrap
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-BLOCKED = ("jax", "jaxlib", "flax", "cv2", "PIL", "mergenet_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "cv2", "PIL", "grain", "mergenet_tpu")
 
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
@@ -32,7 +33,9 @@ SCRIPT = textwrap.dedent("""
               "utils.checkpoint", "utils.logging", "utils.train_utils",
               "models.fcn", "models.vgg", "models.tiling",
               "utils.weight_import", "utils.caffe_import",
-              "utils.inference_utils", "utils.profiling"):
+              "utils.inference_utils", "utils.profiling", "data.imgproc",
+              "data.synthetic", "data.dataset", "data.data_io",
+              "data.pipeline", "certify"):
         assert "mergenet_tpu_torch." + m in mods, m
     from mergenet_tpu_torch.decoder import csegment
     from mergenet_tpu_torch.e2e import masks_to_results
@@ -58,6 +61,20 @@ SCRIPT = textwrap.dedent("""
     with torch.no_grad():
         tile_predict(PSPNet(3, layer=18).eval(), torch.rand(1, 40, 40, 3),
                      3, (32, 32))
+    import os, tempfile
+    from mergenet_tpu_torch.data import (AllDataset, DataLoader, imgproc,
+                                         rle, synthetic)
+    from mergenet_tpu_torch.data.pipeline import make_train_pipeline
+    with tempfile.TemporaryDirectory() as d:
+        synthetic.generate(d, 2, 1, 32, 48, 3, seed=1)
+        ann = os.path.join(d, "annotations", "instancesonly_train.json")
+        ds = AllDataset(os.path.join(d, "train"), ann, 3, ((1, 0),),
+                        scale=2, crop=True, crop_size=12, seed=0)
+        next(iter(DataLoader(ds, batch_size=2, prefetch=1)))
+        next(iter(make_train_pipeline(os.path.join(d, "train"), ann, 2,
+                                      16)[0]))
+    imgproc.resize(np.zeros((9, 9), np.float32), (4, 5))
+    rle.frPyObjects([[1.0, 1.0, 9.0, 1.0, 9.0, 9.0]], 12, 12)
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in %r
                     and sys.modules[n] is not None)
     assert not leaked, leaked

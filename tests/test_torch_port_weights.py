@@ -25,8 +25,9 @@ from mergenet_tpu.utils import weight_import as JW
 from mergenet_tpu.utils.checkpoint import \
     import_torch_checkpoint as jimport_torch_checkpoint
 from mergenet_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
-from mergenet_tpu_torch.models import (FCNVGG16, PSPFPNet, PSPNet, UNet,
-                                       UperNet)
+from mergenet_tpu_torch.models import (VALID_ARCHS, FCNVGG16, PSPFPNet,
+                                       PSPNet, UNet, UperNet, get_model,
+                                       init_model)
 from mergenet_tpu_torch.utils import caffe_import as TC
 from mergenet_tpu_torch.utils import weight_import as TW
 from mergenet_tpu_torch.utils.checkpoint import import_torch_checkpoint
@@ -207,12 +208,33 @@ def test_load_pretrained_matches_reference_and_twin(case, tmp_path):
                                atol=1e-4)
 
 
+#: narrow widths where `get_model` takes them (the ResNet archs have
+#: none)
+NARROW = {"vgg16": dict(width_mult=0.125), "unet": dict(start_filts=4)}
+
+
+@pytest.mark.parametrize("arch", VALID_ARCHS)
+def test_bare_models_have_no_uninitialised_parameter(arch):
+    """A bare `get_model(...)` draws every parameter from torch's global
+    generator (torch's defaults until `init_model`): finite, and two
+    builds after one `torch.manual_seed` have equal state dicts.  A
+    weight made with `torch.empty` and never filled breaks both."""
+    kw = next((v for k, v in NARROW.items() if arch.endswith(k)), {})
+    builds = []
+    for _ in range(2):
+        torch.manual_seed(0)
+        builds.append(get_model(9, 10, arch, **kw).state_dict())
+    for k, v in builds[0].items():
+        assert torch.isfinite(v.float()).all(), (arch, k)
+        assert torch.equal(v, builds[1][k]), (arch, k)
+
+
 def test_backbone_only_checkpoints_load_the_backbone(tmp_path, monkeypatch):
     """The `--pretrain` route: a plain torchvision-style ResNet-50 (and
     vgg16 `features.*`) state dict fills the backbone only, as JAX's."""
     twin = _randomize(TorchResNet((3, 4, 6, 3)), 44)
     path = _save(tmp_path, twin, "resnet50.pth.tar")
-    before = PSPFPNet(5, fpn_dim=64)
+    before = init_model(PSPFPNet(5, fpn_dim=64), 45)
     ref = _jax_route(before, lambda p, b: JW.load_pretrained(
         p, b, path, "pspfpnet", verbose=False))
     model = TW.load_pretrained(copy.deepcopy(before), path, "pspfpnet",

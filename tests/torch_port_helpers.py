@@ -102,14 +102,19 @@ def cuda_device():
 #: decode_hierarchical + relabel_mask, exact: run_segmentation_device's
 #: default mode, cpp: the committed cpp_mask_*.npz), under procedure (a),
 #: the reference's (every image of val_ann.json), and (b), the 8 fixture
-#: images only; "a01" is hier over fixtures 0 and 1 under (a)
+#: images only; "a01" is hier over fixtures 0 and 1 under (a); "c" is
+#: procedure (c): the committed bench_ckpt.npz's net on the 50 val
+#: images regenerated by the reference generator, hier and exact decodes
+#: of its float32 maps, every val image scored (zero overflow)
 JAX_AP = {"a": {"hier": (0.09725247524752474, 0.11262376237623763),
                 "exact": (0.09628712871287129, 0.11633663366336634),
                 "cpp": (0.0927062706270627, 0.11633663366336634)},
           "b": {"hier": (0.7429826732673268, 0.8675742574257426),
                 "exact": (0.7390057755775578, 0.8985148514851485),
                 "cpp": (0.7088778877887789, 0.8985148514851485)},
-          "a01": {"hier": (0.02524752475247525, 0.028465346534653466)}}
+          "a01": {"hier": (0.02524752475247525, 0.028465346534653466)},
+          "c": {"hier": (0.6920563049981829, 0.8145283278327833),
+                "exact": (0.6562437697688676, 0.8091715064363579)}}
 
 
 def coco_stats(coco, results, img_ids=None, cocoeval=None):
