@@ -54,6 +54,14 @@ after:
 - certification (d): seed 0 trained on the regenerated data through the
   port's loader (`data/pipeline.py`, `certify.train_seed`), 24 epochs,
   then scored with hier decodes;
+- the recipes as users run them (`mergenet_tpu_torch/egs/cityscape`),
+  as subprocesses on the 50 regenerated val images: the committed net
+  split into class-only and offset-only checkpoints through
+  `infer_pspfpnet.sh` stages 0-4 (class_infer, offset_infer, segment
+  with the card's hier decode and the overlay, evaluate, submit),
+  `infer_e2e`, and the train recipe plainly and under `torchrun`
+  (NCCL, the data-parallel mesh at world size 1); then data-parallel
+  serving at world size 1 against the plain serve;
 - PSPNet-r101's aux head in compact train steps (batch 16, 768x768,
   aux_weight 0.4, bf16), after one step held against the CPU's with
   the same dropout masks.
@@ -61,8 +69,8 @@ after:
 Every check raises; the exit code is 0 only when all phases pass.
 Prints one line per phase, `train {...}`, `zoo {...}`,
 `class_inference {...}`, `staged {...}`, `data {...}`,
-`certification_c {...}`, `certification_d {...}` and `train_aux {...}`
-lines
+`certification_c {...}`, `certification_d {...}`, `recipes {...}` and
+`train_aux {...}` lines
 (times, throughput, peak memory, FLOPs, shares of the bf16 peak), the
 new phases' spans (`utils/profiling.Stopwatch`), the summary, then the
 card, the kernels line, and last `{"ok": true, "device": {...}}`.
@@ -73,7 +81,8 @@ tests/torch_port_helpers.py); imports torch, numpy, pytest (through
 those helpers) and the standard library besides the port.  Writes
 nothing outside mergenet_tpu_torch/_build/ (the train phase's
 checkpoints, the synthetic caffemodel, the inference phases' maps, the
-regenerated dataset and the trained seed go there).
+regenerated dataset, the trained seed and the recipes' experiments go
+there).
 """
 
 import json
@@ -235,6 +244,16 @@ CERT_SUMMARY_SEED0 = {"hier": (0.6895, 0.8145), "exact": (0.6489, 0.8092)}
 # three seeds' lowest hier AP (0.6693) less their spread (0.6919 - 0.6693)
 CERT_D_EPOCHS = 24
 CERT_D_MIN_HIER_AP = 0.6467
+# recipes phase: the train recipe at run_pspfpnet_crop.sh's arch and
+# alpha, cut to 2 steps (16 train images at batch 8, 384^2 crops) and 8
+# validation images; the same command plainly and under torchrun
+RECIPE_CROP = 384
+RECIPE_BATCH = 8
+RECIPE_TRAIN_ARGS = ["--limits", "16", "--val-limits", "8", "--epochs", "1"]
+RECIPE_LOSS_RTOL = 1e-3
+RECIPE_HEAD_TOL = 1e-5
+RECIPE_TIMEOUT_S = 300
+RECIPE_HALF_IMAGES = 4  # segment at the recipe's 2x shrink, card vs CPU
 
 
 def phase(name):
@@ -1427,6 +1446,378 @@ def cert_d_phase(drive, smi, sw, data_dir):
     return out
 
 
+def _stage_ms(text):
+    """{stage: ms} from the shell twin's "stage <n> done in <ms> ms"."""
+    import re
+    return {int(m.group(1)): int(m.group(2)) for m in re.finditer(
+        r"stage (\d) done in (\d+) ms", text)}
+
+
+def _first_loss(path):
+    """The first step's loss of a train recipe's log: its
+    "Train: [0][0/n] ... Loss <v> (<avg>)" line."""
+    import re
+    with open(path) as f:
+        m = re.search(r"Train: \[0\]\[0/\d+\].*?Loss ([0-9.]+)",
+                      f.read())
+    if m is None:
+        raise AssertionError("no first-step loss in %s" % path)
+    return float(m.group(1))
+
+
+def _launch_log(path):
+    """Launch counts summed over the lines of a MERGENET_LAUNCH_LOG."""
+    import collections
+    total = collections.Counter()
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                total.update(json.loads(line))
+    return total
+
+
+def recipes_phase(drive, paths, smi, sw, data_dir):
+    """The port's recipes as users run them, as subprocesses, on the 50
+    regenerated 512x1024 val images of `data_dir`:
+
+    - the committed PSPFPNet-r50 split into a class-only and an
+      offset-only port checkpoint (the head's first 9 and last 10
+      output channels; their maps within RECIPE_HEAD_TOL of the combined
+      net's on image 0) and an 'all' one;
+    - `infer_pspfpnet.sh` stages 0-4 (class_infer, offset_infer,
+      segment --decoder device --visualize, evaluate, submit; the maps
+      are at the default seg-size, so segment derives the training
+      offsets): every exit code 0, hier AP within
+      CERT_JAX_AP_TOL of JAX's (c), floodscan and absorb launched at
+      least once per image, the overlay of image 0 equal to
+      `visualize_mask`'s array;
+    - segment at the recipe's 2x shrink (`--seg-size 512 256`, the
+      offsets derived as generate_offsets(40, 10)) of the first
+      RECIPE_HALF_IMAGES maps, on the card and on the CPU (started
+      beside the chain once offset_infer is done): the same instances;
+    - `infer_e2e` (batch 1, hier, float32, decoded at 512x1024): AP
+      within the same tolerance;
+    - the train recipe at `run_pspfpnet_crop.sh`'s arch and alpha
+      (crop 384, batch 8, RECIPE_TRAIN_ARGS) plainly and under
+      `torchrun --standalone --nproc_per_node 1` (NCCL, the mesh path),
+      started together with infer_e2e while the chain runs: both write
+      checkpoint and model_best, their first-step losses agree within
+      RECIPE_LOSS_RTOL, the torchrun checkpoint loads back;
+    - data-parallel serving at world size 1 (a FileStore NCCL group in
+      this process) equal to the plain serve on 2 frames.
+
+    The subprocesses report their kernel launches through
+    MERGENET_LAUNCH_LOG (`ops/_build.py`)."""
+    import shutil
+    import subprocess
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mergenet_tpu_torch import certify as CT
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.data import COCO, imgproc, rle
+    from mergenet_tpu_torch.models import PSPFPNet, get_model
+    from mergenet_tpu_torch.ops import _build
+    from mergenet_tpu_torch.parallel import make_mesh
+    from mergenet_tpu_torch.parallel import train as T
+    from mergenet_tpu_torch.serving import build_serving_pipeline
+    from mergenet_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+    from mergenet_tpu_torch.utils.visualization import visualize_mask
+
+    cuda = torch.device("cuda")
+    work = os.path.join(HERE, "mergenet_tpu_torch", "_build", "recipes")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    offsets = io.load_offsets(FIX)
+    C, O = 9, len(offsets)
+    val_img = os.path.join(data_dir, "val")
+    val_ann = os.path.join(data_dir, "annotations", "instancesonly_val.json")
+    net = CT.load_bench_net(os.path.join(FIX, "bench_ckpt.npz"), C + O)
+    tx = T.make_optimizer()
+
+    def checkpoint(name, n, lo, offs):
+        sd = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+        for k in ("FPNModule_0.Conv_1.weight", "FPNModule_0.Conv_1.bias"):
+            sd[k] = sd[k][lo:lo + n]
+        m = PSPFPNet(n)
+        m.load_state_dict(sd)
+        save_checkpoint(os.path.join(work, name), T.TrainState(
+            step=0, model=m, optimizer=tx.init(m.parameters()), tx=tx),
+            True, offsets=offs, epoch=0)
+        return m.to(cuda).eval()
+
+    x = torch.as_tensor(imgproc.imread_rgb(os.path.join(
+        val_img, "val_00000.png")).astype(np.float32)[None] / 256.0,
+        device=cuda)
+    with torch.no_grad():
+        full = torch.sigmoid(net(x))
+        head_err = max(
+            float((torch.sigmoid(checkpoint("cls", C, 0, None)(x))
+                   - full[..., :C]).abs().max()),
+            float((torch.sigmoid(checkpoint("ofs", O, C, offsets)(x))
+                   - full[..., C:]).abs().max()))
+    checkpoint("all", C + O, 0, offsets)
+    print("  split heads: class/offset maps vs the combined net's on "
+          "image 0: max abs %.3e (limit %.0e)" % (head_err, RECIPE_HEAD_TOL),
+          flush=True)
+    if not head_err <= RECIPE_HEAD_TOL:
+        raise AssertionError("split heads differ: %.3e" % head_err)
+
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    py = [sys.executable, "-m"]
+    train_args = ["--arch", "pspfpnet", "--alpha", "20", "--crop",
+                  "--crop-size", str(RECIPE_CROP), "--batch-size",
+                  str(RECIPE_BATCH), "--log-freq", "100", "--pretrain",
+                  "--tensorboard", "--print-freq", "1",
+                  "--train-img", os.path.join(data_dir, "train"),
+                  "--train-ann", os.path.join(data_dir, "annotations",
+                                              "instancesonly_train.json"),
+                  "--val-img", val_img, "--val-ann", val_ann
+                  ] + RECIPE_TRAIN_ARGS
+    recipe = "mergenet_tpu_torch.egs.cityscape."
+    background = {
+        "train": py + [recipe + "train", os.path.join(work, "train")]
+        + train_args,
+        "train torchrun": py + ["torch.distributed.run", "--standalone",
+                                "--nproc_per_node", "1", "-m",
+                                recipe + "train",
+                                os.path.join(work, "train_ddp")]
+        + train_args,
+        "infer_e2e": py + [recipe + "infer_e2e", "--dir",
+                           os.path.join(work, "e2e"), "--model",
+                           os.path.join(work, "all", "model_best"),
+                           "--img", val_img, "--ann", val_ann,
+                           "--decode-size", "512", "1024"]}
+    procs, logs = {}, {}
+    chain_cmd = ["bash", os.path.join(HERE, "mergenet_tpu_torch", "egs",
+                                      "cityscape", "infer_pspfpnet.sh"),
+                 "--dir", os.path.join(work, "seg"),
+                 "--class-dir", os.path.join(work, "cls"),
+                 "--offset-dir", os.path.join(work, "ofs"),
+                 "--img", val_img, "--ann", val_ann, "--test-ann", val_ann]
+    # the recipe's own geometry: maps shrunk 2x (cv2's area-fast route at
+    # 9 and 10 channels) and the offsets derived for it, on the card and
+    # on the CPU
+    half = {dev: py + [recipe + "segment", "--dir", os.path.join(
+        work, "half"), "--segment", dev, "--class-dir", os.path.join(
+        work, "cls"), "--offset-dir", os.path.join(work, "ofs"), "--img",
+        val_img, "--ann", val_ann, "--seg-size", "512", "256", "--limits",
+        str(RECIPE_HALF_IMAGES), "--device", dev] for dev in ("cuda", "cpu")}
+
+    def start(name, cmd, tag):
+        logs[name] = os.path.join(work, tag + ".log")
+        procs[name] = subprocess.Popen(
+            cmd, cwd=work, stdout=open(logs[name], "w"),
+            stderr=subprocess.STDOUT, env=dict(
+                env, MERGENET_LAUNCH_LOG=os.path.join(
+                    work, tag + ".launches")))
+        return procs[name]
+
+    def chain_text():
+        with open(logs["infer_pspfpnet.sh"]) as f:
+            return f.read()
+
+    def run_all():
+        t0 = time.perf_counter()
+        for name, cmd in background.items():
+            start(name, cmd, name.replace(" ", "_"))
+        chain = start("infer_pspfpnet.sh", chain_cmd, "chain")
+        # the 2x-shrink segments start once offset_infer wrote its maps
+        while chain.poll() is None and "stage 1 done" not in chain_text():
+            time.sleep(0.5)
+        if chain.poll() in (None, 0):
+            for dev, cmd in half.items():
+                start("segment 2x shrink " + dev, cmd, "half_" + dev)
+        chain.wait(timeout=RECIPE_TIMEOUT_S)
+        chain_s = time.perf_counter() - t0
+        rcs = {n: p.wait(timeout=RECIPE_TIMEOUT_S) for n, p in procs.items()}
+        _build.LAUNCHES.update(_launch_log(os.path.join(
+            work, "chain.launches")))
+        return chain_s, rcs
+
+    try:
+        with sw.span("recipes"):
+            chain_s, rcs = drive("recipes", run_all, ("floodscan", "absorb"))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    chain_out = chain_text()
+    print("  exit codes: %s; chain %.2f s; stages (ms, with training, "
+          "infer_e2e and the 2x-shrink segments running beside them): %s"
+          % (rcs, chain_s, _stage_ms(chain_out)), flush=True)
+    if any(rcs.values()):
+        for name, path in list(logs.items()):
+            with open(path) as f:
+                print("  --- %s (tail) ---\n%s" % (name, f.read()[-3000:]))
+        raise AssertionError("a recipe failed: %s" % rcs)
+    for name in ("infer_e2e", "train", "train torchrun"):
+        paths["recipes " + name] = dict(_launch_log(os.path.join(
+            work, name.replace(" ", "_") + ".launches")))
+    paths["recipes segment 2x shrink"] = dict(_launch_log(os.path.join(
+        work, "half_cuda.launches")))
+    print("  launches: infer_e2e %s, train %s, train torchrun %s" % (
+        paths["recipes infer_e2e"], paths["recipes train"],
+        paths["recipes train torchrun"]), flush=True)
+
+    # the chain's and infer_e2e's AP, from their pkls as evaluate reads
+    # them (the printed table has 3 decimals)
+    import pickle
+
+    from mergenet_tpu_torch.core import generate_offsets
+    coco = COCO(val_ann)
+
+    def pkl_results(seg):
+        out = []
+        pkl = os.path.join(seg, "pkl")
+        for fname in sorted(os.listdir(pkl)):
+            with open(os.path.join(pkl, fname), "rb") as f:
+                out += [r for r in pickle.load(f)
+                        if rle.area(r["segmentation"]) > 0]
+        return out
+
+    seg_dir = os.path.join(work, "seg", "segment_512")
+    half_res = {}
+    for dev in ("cuda", "cpu"):
+        pkl = os.path.join(work, "half", dev, "pkl")
+        half_res[dev] = {}
+        for fname in sorted(os.listdir(pkl)):
+            with open(os.path.join(pkl, fname), "rb") as f:
+                half_res[dev][fname] = {
+                    (r["category_id"], r["segmentation"]["counts"])
+                    for r in pickle.load(f)}
+    with open(logs["segment 2x shrink cuda"]) as f:
+        half_offsets = [ln for ln in f.read().splitlines()
+                        if ln.startswith("offsets are: ")]
+    half_equal = (len(half_res["cuda"]) == RECIPE_HALF_IMAGES
+                  and half_res["cuda"] == half_res["cpu"])
+    half_40 = half_offsets == ["offsets are: %s" % (
+        generate_offsets(40, O),)]
+    ap = CT.coco_ap(coco, pkl_results(seg_dir))
+    ap_e2e = CT.coco_ap(coco, pkl_results(os.path.join(work, "e2e",
+                                                       "segment")))
+    printed = [ln for ln in chain_out.splitlines()
+               if "Average Precision" in ln][0]
+    n_png = len([f for f in os.listdir(os.path.join(seg_dir, "result"))
+                 if f.endswith(".png")])
+    # the overlay of image 0 against visualize_mask on its decoded mask
+    with open(os.path.join(seg_dir, "pkl", "0.pkl"), "rb") as f:
+        res0 = pickle.load(f)
+    mask0 = np.zeros((512, 1024), np.int32)
+    for k, r in enumerate(res0, start=1):
+        mask0[rle.decode(r["segmentation"]) > 0] = k
+    img0 = imgproc.imread_rgb(os.path.join(val_img, "val_00000.png"))
+    overlay_equal = bool(np.array_equal(
+        io.read_png_rgb(os.path.join(seg_dir, "img", "0.png")),
+        visualize_mask(img0.astype(np.float32) / 256.0, mask0,
+                       transparency=0.3)))
+    loss = {n: _first_loss(logs[n]) for n in ("train", "train torchrun")}
+    loss_rel = abs(loss["train"] - loss["train torchrun"]) / abs(
+        loss["train"])
+    files = {n: all(os.path.isfile(os.path.join(work, d, f)) for f in (
+        "checkpoint", "checkpoint.meta.json", "model_best",
+        "model_best.meta.json")) for n, d in (("train", "train"),
+                                              ("train torchrun",
+                                               "train_ddp"))}
+    state = T.create_train_state(get_model(C, O, "pspfpnet"), tx)
+    state, meta = load_checkpoint(os.path.join(work, "train_ddp",
+                                               "model_best"), state)
+    loads_back = state.step >= 1 and meta["offsets"] == list(offsets)
+    del state
+
+    # data-parallel serving at world size 1 against the plain serve
+    frames = np.stack([imgproc.imread_rgb(os.path.join(
+        val_img, "val_%05d.png" % k)).astype(np.float32) / 256.0
+        for k in (0, 1)])
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(work, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        plain = build_serving_pipeline(net, C, offsets,
+                                       overflow_fallback=True, **SERVE_KW)
+        meshed = build_serving_pipeline(net, C, offsets,
+                                        overflow_fallback=True, mesh=mesh,
+                                        **SERVE_KW)
+        a, b = drive("serving mesh", lambda: (plain(frames),
+                                              meshed(frames)),
+                     ("floodscan", "absorb"))
+        serve_equal = all(torch.equal(u, v) for u, v in zip(a, b))
+    finally:
+        dist.destroy_process_group()
+    del net
+    launches = paths["recipes"]
+    out = {"exit_codes": rcs, "stage_ms": _stage_ms(chain_out),
+           "chain_s": chain_s, "phase_s": sw.totals["recipes"],
+           "head_split_max_abs": head_err, "ap": ap, "ap_e2e": ap_e2e,
+           "jax_ap": JAX_AP["c"]["hier"], "evaluate_line": printed,
+           "submission_pngs": n_png, "overlay_equal": overlay_equal,
+           "first_step_loss": loss, "first_step_loss_rel": loss_rel,
+           "checkpoints": files, "torchrun_checkpoint_loads": loads_back,
+           "serving_mesh_equal": serve_equal,
+           "segment_2x_shrink": {"images": RECIPE_HALF_IMAGES,
+                                 "card_equals_cpu": half_equal,
+                                 "instances": sum(map(len, half_res[
+                                     "cuda"].values())),
+                                 "offsets": half_offsets},
+           "serving_mesh_overflow": [int(v) for v in b[2]],
+           "launches_by_path": {k: paths[k] for k in paths
+                                if k.startswith("recipes")
+                                or k == "serving mesh"}}
+    print("  staged chain hier AP %.4f AP50 %.4f (evaluate printed: %s); "
+          "infer_e2e AP %.4f AP50 %.4f; JAX (c) hier %.4f; %d submission "
+          "PNGs; overlay of image 0 equal: %s" % (
+              ap[0], ap[1], printed.split("=")[-1].strip(), ap_e2e[0],
+              ap_e2e[1], JAX_AP["c"]["hier"][0], n_png, overlay_equal),
+          flush=True)
+    print("  segment at the 2x shrink (512x256, %d images): card == CPU: "
+          "%s, %d instances; %s" % (
+              RECIPE_HALF_IMAGES, half_equal, sum(map(len, half_res[
+                  "cuda"].values())), half_offsets), flush=True)
+    print("  train recipe first-step loss: plain %.4f, torchrun %.4f "
+          "(relative %.2e, limit %.0e); checkpoints %s; torchrun "
+          "checkpoint loads: %s; serving mesh == plain: %s (%s)" % (
+              loss["train"], loss["train torchrun"], loss_rel,
+              RECIPE_LOSS_RTOL, files, loads_back, serve_equal, smi),
+          flush=True)
+    gates = [
+        ("chain AP within %.3f of JAX's" % CERT_JAX_AP_TOL,
+         abs(ap[0] - JAX_AP["c"]["hier"][0]) <= CERT_JAX_AP_TOL),
+        ("infer_e2e AP within %.3f of JAX's" % CERT_JAX_AP_TOL,
+         abs(ap_e2e[0] - JAX_AP["c"]["hier"][0]) <= CERT_JAX_AP_TOL),
+        ("evaluate printed the AP", printed.endswith("%.3f" % ap[0])),
+        ("floodscan and absorb once per image",
+         launches.get("floodscan", 0) >= 50
+         and launches.get("absorb", 0) >= 50),
+        ("the training paths launched no decode kernel",
+         not any(paths["recipes train"].values())
+         and not any(paths["recipes train torchrun"].values())),
+        ("infer_e2e launched floodscan and absorb",
+         paths["recipes infer_e2e"].get("floodscan", 0) >= 50
+         and paths["recipes infer_e2e"].get("absorb", 0) >= 50),
+        ("overlay equal", overlay_equal),
+        ("segment at the 2x shrink: card == CPU", half_equal),
+        ("segment at the 2x shrink derived generate_offsets(40, 10)",
+         half_40),
+        ("segment at the 2x shrink launched floodscan on the card",
+         paths["recipes segment 2x shrink"].get("floodscan", 0)
+         >= RECIPE_HALF_IMAGES),
+        ("submission PNGs", n_png > 0),
+        ("first-step losses", loss_rel <= RECIPE_LOSS_RTOL),
+        ("checkpoints written", all(files.values())),
+        ("torchrun checkpoint loads", loads_back),
+        ("serving mesh equal", serve_equal)]
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        raise AssertionError("recipes gates failed: %s" % failed)
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 
 def main():
     import numpy as np
@@ -2061,6 +2452,10 @@ def main():
     cert_d = cert_d_phase(drive, smi, sw, data_dir)
     print("certification_d " + json.dumps({"card": smi, **cert_d}),
           flush=True)
+    phase("recipes: infer_pspfpnet.sh stages 0-4, infer_e2e and the train "
+          "recipe (plain and torchrun) on the 50 regenerated val images")
+    recipes = recipes_phase(drive, paths, smi, sw, data_dir)
+    print("recipes " + json.dumps({"card": smi, **recipes}), flush=True)
     phase("train: PSPNet-r101 with the aux head, batch %d, %d^2 crops, "
           "aux_weight %g, bf16" % (TRAIN_BATCH, TRAIN_CROP,
                                    TRAIN_AUX_WEIGHT))
@@ -2124,6 +2519,7 @@ def main():
                "train": train, "zoo": zoo, "class_inference": cls_inf,
                "staged": staged, "train_aux": train_aux, "data": data,
                "certification_c": cert_c, "certification_d": cert_d,
+               "recipes": recipes,
                "launches_by_path": paths,
                "total_s": time.perf_counter() - T0}
     print("summary " + json.dumps(summary), flush=True)

@@ -349,21 +349,41 @@ class COCOTestset:
         return len(self.ids)
 
 
+def _shard_slice(shard, batch_size, drop_last=True):
+    """The slice of each batch that loader `index` of `count` yields
+    (all of it without a shard)."""
+    if shard is None:
+        return slice(None)
+    index, count = shard
+    if not drop_last or batch_size % count or not 0 <= index < count:
+        raise ValueError("shard %s of batches of %d needs drop_last and a "
+                         "batch size that the count divides"
+                         % (shard, batch_size))
+    b = batch_size // count
+    return slice(index * b, (index + 1) * b)
+
+
 class DataLoader:
     """Minimal batching loader: shuffle, batch, drop_last; yields stacked
     numpy arrays (the reference's loader, batch for batch from a seed).
 
     `prefetch > 0` assembles batches on a background thread so host data
-    prep overlaps the card's step."""
+    prep overlaps the card's step.
+
+    `shard=(index, count)`: every one of `count` loaders draws the same
+    order and yields only its contiguous `batch_size // count` slice of
+    each batch (a data-parallel rank's shard; `drop_last` and a batch
+    size that `count` divides are required)."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, drop_last=False,
-                 seed=0, prefetch=0):
+                 seed=0, prefetch=0, shard=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.rng = np.random.RandomState(seed)
+        self.shard = _shard_slice(shard, batch_size, drop_last)
 
     def _batches(self):
         order = np.arange(len(self.dataset))
@@ -373,7 +393,8 @@ class DataLoader:
         step = self.batch_size
         end = n - (n % step) if self.drop_last else n
         for s in range(0, end, step):
-            items = [self.dataset[int(i)] for i in order[s:s + step]]
+            items = [self.dataset[int(i)] for i in order[s:s + step][
+                self.shard]]
             yield self._collate(items)
 
     def __iter__(self):

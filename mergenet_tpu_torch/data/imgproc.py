@@ -15,11 +15,19 @@ function here reproduces what cv2 computes, not an approximation of it:
   (`saturate_cast<short>(w * 2048)`, rounded half to even), a horizontal
   pass into int32, and a vertical pass that drops 4 bits of each row
   before a 16-bit multiply-high, then rounds the sum by `(s + 2) >> 2`.
-- float32 INTER_LINEAR interpolates each pass as `fma(b - a, t, a)`, with
-  `t` the float32 of the double fractional position.  Two cases where
-  cv2 computes otherwise are not reproduced, and there a value can be an
-  ulp off cv2's: a multi-channel image widened (destination wider than
-  the source), and a source with a single row or column.
+- float32 INTER_LINEAR takes one of cv2's three routes.  At 1, 3 and 4
+  channels each pass interpolates as `fma(b - a, t, a)`, with `t` the
+  float32 of the double fractional position.  At 2 or 5 and more
+  channels, and from a source with a single row or column, each pass
+  computes `S0 * w0 + S1 * w1` with float32 taps (the position cast to
+  float first, `w0 = 1 - w1`), each product and the sum rounded to
+  float32; the vertical weights are not clamped at the borders, only
+  the rows are.  An exact 2x shrink in both axes at 2 or 5 and more
+  channels is cv2's area-fast path: `(((S0[2x] + S0[2x+1]) + S1[2x])
+  + S1[2x+1]) * 0.25`.  One case is not reproduced, and there a value
+  can be an ulp off cv2's: a 3- or 4-channel image widened, at some
+  pixels of its clamped border columns (seen with sources up to 13
+  columns wide).
 - Source positions are `(d + 0.5) * scale - 0.5` in double, `scale` =
   src / dst for INTER_LINEAR and `floor(d / (dst / src))` for
   INTER_NEAREST, as cv2 computes them.
@@ -161,6 +169,40 @@ def _resize_linear_f32(img, dw, dh):
     return out.reshape((dh, dw) + img.shape[2:])
 
 
+def _taps32(dst, src, clamp_weight):
+    """cv2's float taps: the float32 of the double position, its floor
+    and the float32 fraction w1; indices clipped to the source, and the
+    weight set to 0 where the left tap was clamped when
+    `clamp_weight` (cv2 does so on the horizontal pass only)."""
+    fx = ((np.arange(dst, dtype=np.float64) + 0.5) * (src / dst)
+          - 0.5).astype(np.float32)
+    sx = np.floor(fx)
+    w1 = (fx - sx).astype(np.float32)
+    sx = sx.astype(np.int64)
+    if clamp_weight:
+        w1[(sx < 0) | (sx >= src - 1)] = 0
+    return np.clip(sx, 0, src - 1), np.clip(sx + 1, 0, src - 1), w1
+
+
+def _resize_linear_f32_wsum(img, dw, dh):
+    """cv2's generic float route: `S0 * w0 + S1 * w1` on each pass, each
+    product and the sum rounded to float32."""
+    H, W = img.shape[:2]
+    src = img.reshape(H, W, -1).astype(np.float32)
+    if H == 2 * dh and W == 2 * dw:  # cv2's area-fast path
+        s0, s1 = src[0::2], src[1::2]
+        acc = ((s0[:, 0::2] + s0[:, 1::2]) + s1[:, 0::2]) + s1[:, 1::2]
+        return (acc * np.float32(0.25)).reshape((dh, dw) + img.shape[2:])
+    one = np.float32(1)
+    x0, x1, w1 = _taps32(dw, W, True)
+    w1 = w1[None, :, None]
+    rows = src[:, x0] * (one - w1) + src[:, x1] * w1
+    y0, y1, v1 = _taps32(dh, H, False)
+    v1 = v1[:, None, None]
+    out = rows[y0] * (one - v1) + rows[y1] * v1
+    return out.reshape((dh, dw) + img.shape[2:])
+
+
 def _resize_nearest(img, dw, dh):
     H, W = img.shape[:2]
     sx = np.minimum(np.floor(np.arange(dw) * (1.0 / (dw / W))).astype(
@@ -189,7 +231,10 @@ def resize(img, dsize, interpolation=INTER_LINEAR):
     if img.dtype == np.uint8:
         return _resize_linear_u8(img, dw, dh)
     if img.dtype == np.float32:
-        return _resize_linear_f32(img, dw, dh)
+        cn = img.shape[2] if img.ndim == 3 else 1
+        if cn in (1, 3, 4) and min(img.shape[:2]) > 1:
+            return _resize_linear_f32(img, dw, dh)
+        return _resize_linear_f32_wsum(img, dw, dh)
     raise TypeError("resize: INTER_LINEAR takes uint8 or float32, got %s"
                     % img.dtype)
 

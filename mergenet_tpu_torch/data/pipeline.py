@@ -33,7 +33,7 @@ import numpy as np
 
 from . import imgproc
 from .coco import COCO
-from .dataset import anns_to_mask, resize_image_and_mask
+from .dataset import _shard_slice, anns_to_mask, resize_image_and_mask
 
 #: class table capacity per record (instances beyond this are background)
 MAX_INSTANCES = 256
@@ -123,12 +123,14 @@ class TrainPipeline:
     """Iterable of compact batches: shuffle -> crop -> batch with the
     remainder dropped, `num_epochs` passes (None: one), records read by
     `read_threads` threads and up to `prefetch_buffer` batches assembled
-    ahead on a background thread."""
+    ahead on a background thread; `shard` as in `make_train_pipeline`."""
 
     def __init__(self, source, batch_size, crop_size, seed=0, shuffle=True,
-                 num_epochs=None, read_threads=2, prefetch_buffer=4):
+                 num_epochs=None, read_threads=2, prefetch_buffer=4,
+                 shard=None):
         self.source = source
         self.batch_size = batch_size
+        self.shard = _shard_slice(shard, batch_size)
         self.crop = RandomCrop(crop_size, crop_size)
         self.seed = int(seed)
         self.shuffle = shuffle
@@ -159,7 +161,8 @@ class TrainPipeline:
     def _batches(self, pool):
         order = self.order()
         for s in range(0, len(order), self.batch_size):
-            recs = list(pool.map(self._sample, order[s:s + self.batch_size]))
+            recs = list(pool.map(self._sample, order[
+                s:s + self.batch_size][self.shard]))
             yield {k: np.stack([r[k] for r in recs]) for k in recs[0]}
 
     def __iter__(self):
@@ -206,7 +209,7 @@ class TrainPipeline:
 def make_train_pipeline(img_dir, annfile, batch_size, crop_size,
                         scale=1, limits=None, seed=0, shuffle=True,
                         num_epochs=None, read_threads=2,
-                        prefetch_buffer=4, source=None):
+                        prefetch_buffer=4, source=None, shard=None):
     """Build the pipeline; returns (batches, source).
 
     Iterating `batches` yields dicts of stacked numpy arrays:
@@ -214,11 +217,14 @@ def make_train_pipeline(img_dir, annfile, batch_size, crop_size,
         object_class (B, MAX_INSTANCES) int32
     for `build_train_step_compact`, which normalises and builds the
     targets on the card.  Pass `source` to reuse a CocoInstanceSource
-    across epochs (vary `seed` per epoch for fresh shuffles and crops)."""
+    across epochs (vary `seed` per epoch for fresh shuffles and crops).
+    `shard=(index, count)`: this pipeline yields only its contiguous
+    slice of each batch, the same crops as the whole batch's (each
+    sample's crop draws from (seed, epoch, position))."""
     if source is None:
         source = CocoInstanceSource(img_dir, annfile, scale=scale,
                                     limits=limits)
     return TrainPipeline(source, batch_size, crop_size, seed=seed,
                          shuffle=shuffle, num_epochs=num_epochs,
                          read_threads=read_threads,
-                         prefetch_buffer=prefetch_buffer), source
+                         prefetch_buffer=prefetch_buffer, shard=shard), source

@@ -63,11 +63,14 @@ def build_e2e_infer(model, num_classes, offsets, decode_size=None,
 
     def decode(x, dh, dw):
         if decode_mode == "hier":
-            logits = logits_at(model, x, (dh, dw))[0]
+            # models without output_size (UNet) decode probabilities
+            raw = logits_at(model, x, (dh, dw))
+            small = raw[0] if raw is not None \
+                else probs_at(model, x, (dh, dw))[0]
             return decode_hierarchical(
-                logits[..., :num_classes], logits[..., num_classes:],
-                num_classes, offsets, relabel=True, from_logits=True, **kw,
-                **(hier_kwargs or {}))
+                small[..., :num_classes], small[..., num_classes:],
+                num_classes, offsets, relabel=True,
+                from_logits=raw is not None, **kw, **(hier_kwargs or {}))
         small = probs_at(model, x, (dh, dw))[0]
         cp, sp = small[..., :num_classes], small[..., num_classes:]
         if max_components is None and max_edges is None:

@@ -63,7 +63,14 @@ class SyncBatchNorm(nn.Module):
 
     Eval mode: y = (x - mean) * scale / sqrt(var + eps) + bias, with the
     affine folded in float32 and applied in the input's dtype.
-    Cross-replica statistics wait for the data-parallel slice."""
+
+    Cross-replica statistics: while `mesh` holds a data-parallel
+    `parallel.Mesh` (the train steps set it), train mode takes the
+    statistics of the global batch, as GSPMD gives the reference: the
+    per-channel sums are all-reduced to the global mean, then the sums
+    of squared deviations from it to the global (biased) variance, both
+    reductions differentiable (`torch.distributed.nn`).  Not
+    `torch.nn.SyncBatchNorm`, whose running variance is unbiased."""
 
     MOMENTUM = 0.9
 
@@ -71,6 +78,7 @@ class SyncBatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.update_stats = True
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -84,7 +92,28 @@ class SyncBatchNorm(nn.Module):
         b = self.bias.float() - self.running_mean.float() * a
         return x * a.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
 
+    def _global_train_forward(self, x):
+        from torch.distributed.nn.functional import all_reduce
+        pdt = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(pdt)
+        # every rank holds an equal shard (`parallel.mesh.local_slice`)
+        count = float(x.numel() // x.shape[1] * self.mesh.world)
+        dims = (0, 2, 3)
+        mean = all_reduce(xf.sum(dims)) / count
+        d = xf - mean[:, None, None]
+        var = all_reduce((d * d).sum(dims)) / count
+        scale = self.weight.to(pdt) * torch.rsqrt(var + self.eps)
+        y = d * scale[:, None, None] + self.bias.to(pdt)[:, None, None]
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+                self.running_var.mul_(m).add_(var, alpha=1 - m)
+        return y.to(x.dtype)
+
     def _train_forward(self, x):
+        if self.mesh is not None:
+            return self._global_train_forward(x)
         # one pass: the normalised output (float32 arithmetic, the input's
         # dtype out) and the float32 batch mean and 1/sqrt(var + eps);
         # no ValueError at one value per channel, unlike F.batch_norm

@@ -9,12 +9,17 @@ ctypes; every entry point returns `cudaGetLastError()` and `check()`
 raises on a non-zero code.
 
 `LAUNCHES` counts kernel launches per wrapper: each wrapper adds one
-where it launches its kernel and nowhere else."""
+where it launches its kernel and nowhere else.  A process started with
+`MERGENET_LAUNCH_LOG=<file>` in its environment appends its counts to
+that file as one JSON line when it exits (how a parent process counts
+the launches of the recipes it runs as subprocesses)."""
 
+import atexit
 import collections
 import ctypes
 import glob
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -57,6 +62,14 @@ build_seconds = None
 
 def reset_launches():
     LAUNCHES.clear()
+
+
+@atexit.register
+def _log_launches():
+    path = os.environ.get("MERGENET_LAUNCH_LOG")
+    if path and LAUNCHES:
+        with open(path, "a") as f:
+            f.write(json.dumps(dict(LAUNCHES)) + "\n")
 
 
 def sources():

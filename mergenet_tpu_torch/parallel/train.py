@@ -19,7 +19,17 @@ is the reference).
 
 Steps run where the state lives (`create_train_state(device=None)`
 means CUDA and raises without it).  Inputs may be numpy arrays or
-tensors; metrics come back as 0-d tensors on that device, unsynced."""
+tensors; metrics come back as 0-d tensors on that device, unsynced.
+
+With a data-parallel `mesh` (`parallel.mesh.make_mesh`; the state on
+the mesh's device), every rank gets the same global batch and takes its
+contiguous shard, or with `local_batch=True` gets only its shard (a
+loader sharded by rank, `data.DataLoader(shard=...)`); batch norm
+takes the global batch's statistics, the gradients are averaged over
+the ranks in one `all_reduce` of the flattened gradients (a fixed
+order), and the loss metrics are the global-batch means: the reference's GSPMD step.  The eval step gathers
+the probabilities and per-sample vectors of the whole batch on every
+rank (with `local_batch`, it returns this rank's)."""
 
 import contextlib
 import dataclasses
@@ -28,6 +38,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
@@ -35,6 +46,7 @@ from ..models import REMAT_BLOCKS, init_model
 from ..models.layers import Dropout, SyncBatchNorm
 from ..ops.losses import bce_with_logits_loss
 from ..ops.targets import mask_to_target
+from .mesh import all_gather_batch, check_mesh, local_slice
 
 
 def multistep_lr(base_lr, milestones, gamma=0.2, steps_per_epoch=1):
@@ -107,14 +119,53 @@ def create_train_state(model, tx, seed=0, device=None):
                       optimizer=tx.init(model.parameters()), tx=tx)
 
 
-def _check_unported(mesh):
-    if mesh is not None:
-        raise NotImplementedError("data-parallel steps (mesh) wait for "
-                                  "ROADMAP.md queue 1, item 8")
+def _check(mesh):
+    return None if mesh is None else check_mesh(mesh)
 
 
-def _on(x, device):
+def _on(x, device, mesh=None, local=False):
+    """`x` on `device`; with a mesh, this rank's shard of it only (`x`
+    itself when it is the shard: `local`)."""
+    if mesh is not None and not local:
+        x = x[local_slice(x.shape[0], mesh)]
     return torch.as_tensor(x, device=device)
+
+
+@contextlib.contextmanager
+def _global_stats(model, mesh):
+    """The model's batch norms take the global batch's statistics over
+    `mesh` during the step."""
+    bns = [m for m in model.modules() if isinstance(m, SyncBatchNorm)]
+    for m in bns:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.mesh = None
+
+
+def _average_gradients(model, mesh):
+    """Each gradient replaced by its mean over the ranks: one all_reduce
+    of the gradients flattened in parameter order."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    flat /= mesh.world
+    i = 0
+    for g in grads:
+        g.copy_(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+
+
+def _global_mean(metrics, mesh):
+    """Scalar metrics averaged over the ranks (equal shards: the mean of
+    the shard means is the global-batch mean)."""
+    keys = sorted(metrics)
+    v = torch.stack([metrics[k] for k in keys])
+    dist.all_reduce(v)
+    v /= mesh.world
+    return dict(zip(keys, v.unbind()))
 
 
 def _split_loss(logits, targets, num_classes, num_offsets, alpha,
@@ -197,15 +248,17 @@ def _stats_frozen(model):
 
 
 def _grad_step(state, img, target, rng, num_classes, num_offsets, alpha,
-               criterion_cls, criterion_ofs, remat, aux_weight):
+               criterion_cls, criterion_ofs, remat, aux_weight, mesh):
     """forward (train mode, dropout from `rng`), loss (with the aux
     head's when `aux_weight`), backward, update; returns (state,
-    metrics)."""
+    metrics).  With `mesh`, `img` and `target` are this rank's shard."""
     model = state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
     kwargs = {"with_aux": True} if aux_weight else {}
     with contextlib.ExitStack() as ctx:
         ctx.enter_context(_dropout_rng(model, rng))
+        if mesh is not None:
+            ctx.enter_context(_global_stats(model, mesh))
         if remat:
             ctx.enter_context(_checkpointed(model, rng))
         outs = model(img, **kwargs)
@@ -220,18 +273,23 @@ def _grad_step(state, img, target, rng, num_classes, num_offsets, alpha,
             total = total + aux_weight * aux_l
         with _stats_frozen(model) if remat else contextlib.nullcontext():
             total.backward()
+    if mesh is not None:
+        _average_gradients(model, mesh)
     state.apply_gradients()
     metrics = {"loss": total.detach(), "cls_loss": cls_l.detach(),
                "ofs_loss": ofs_l.detach()}
     if aux_weight:
         metrics["aux_loss"] = aux_l.detach()
+    if mesh is not None:
+        metrics = _global_mean(metrics, mesh)
     return state, metrics
 
 
 def build_train_step(num_classes, num_offsets, alpha=1.0,
                      criterion_cls=bce_with_logits_loss,
                      criterion_ofs=bce_with_logits_loss,
-                     mesh=None, remat=False, aux_weight=0.0):
+                     mesh=None, remat=False, aux_weight=0.0,
+                     local_batch=False):
     """Returns step(state, img, target, rng=None) -> (state, metrics).
 
     img: (N, H, W, 3) float; target: (N, H, W, C+O) float; rng: the
@@ -241,21 +299,25 @@ def build_train_step(num_classes, num_offsets, alpha=1.0,
     FLOPs.  `aux_weight > 0` adds deep supervision on the model's
     auxiliary head (PSPNet): the model is called `with_aux=True`, the
     same split loss on the aux logits is added with this weight, and
-    the metrics carry it as `aux_loss`."""
-    _check_unported(mesh)
+    the metrics carry it as `aux_loss`.  `mesh`: data parallelism over
+    its ranks, and `local_batch`: the inputs are this rank's shard
+    (module docstring)."""
+    mesh = _check(mesh)
 
     def step(state, img, target, rng=None):
         dev = state.device
-        return _grad_step(state, _on(img, dev), _on(target, dev), rng,
+        return _grad_step(state, _on(img, dev, mesh, local_batch),
+                          _on(target, dev, mesh, local_batch), rng,
                           num_classes, num_offsets, alpha, criterion_cls,
-                          criterion_ofs, remat, aux_weight)
+                          criterion_ofs, remat, aux_weight, mesh)
     return step
 
 
 def build_train_step_compact(num_classes, offsets, alpha=1.0,
                              criterion_cls=bce_with_logits_loss,
                              criterion_ofs=bce_with_logits_loss,
-                             mesh=None, remat=False, aux_weight=0.0):
+                             mesh=None, remat=False, aux_weight=0.0,
+                             local_batch=False):
     """Train step over compact batches:
     step(state, image_u8, mask, object_class, rng=None) -> (state,
     metrics).
@@ -264,29 +326,36 @@ def build_train_step_compact(num_classes, offsets, alpha=1.0,
     object_class: (N, K) integer class tables; rng as in
     `build_train_step`.  The /256 normalisation and the (C + O)-plane
     targets (`ops.targets.mask_to_target`) are computed on the state's
-    device; `remat` and `aux_weight` as in `build_train_step`."""
-    _check_unported(mesh)
+    device; `remat`, `aux_weight`, `mesh` and `local_batch` as in
+    `build_train_step`."""
+    mesh = _check(mesh)
     offsets = tuple(tuple(int(v) for v in o) for o in offsets)
 
     def step(state, image_u8, mask, object_class, rng=None):
         dev = state.device
-        img = _on(image_u8, dev).float() / 256.0
-        target = mask_to_target(_on(mask, dev), _on(object_class, dev),
+        img = _on(image_u8, dev, mesh, local_batch).float() / 256.0
+        target = mask_to_target(_on(mask, dev, mesh, local_batch),
+                                _on(object_class, dev, mesh, local_batch),
                                 num_classes, offsets)
         return _grad_step(state, img, target, rng, num_classes,
                           len(offsets), alpha, criterion_cls, criterion_ofs,
-                          remat, aux_weight)
+                          remat, aux_weight, mesh)
     return step
 
 
 def build_eval_step(num_classes, num_offsets, alpha=1.0,
                     criterion_cls=bce_with_logits_loss,
-                    criterion_ofs=bce_with_logits_loss, mesh=None):
+                    criterion_ofs=bce_with_logits_loss, mesh=None,
+                    local_batch=False):
     """Returns eval(state, img, target) -> (sigmoid_probs, metrics), with
     the model in eval mode.  metrics carries batch-mean scalars and
     per-sample (B,) vectors (`per_sample_*`, the criterion on each row)
-    so callers that pad partial batches count real rows only."""
-    _check_unported(mesh)
+    so callers that pad partial batches count real rows only.  With
+    `mesh`, each rank evaluates its shard and every rank gets the whole
+    batch's probabilities and metrics; with `local_batch` as well, the
+    inputs are this rank's shard and the probabilities and per-sample
+    vectors are its own (the scalars still the global means)."""
+    mesh = _check(mesh)
     loss = functools.partial(_split_loss, num_classes=num_classes,
                              num_offsets=num_offsets, alpha=alpha,
                              criterion_cls=criterion_cls,
@@ -295,13 +364,19 @@ def build_eval_step(num_classes, num_offsets, alpha=1.0,
     @torch.no_grad()
     def step(state, img, target):
         dev = state.device
-        target = _on(target, dev)
-        outs = state.model.eval()(_on(img, dev))
+        target = _on(target, dev, mesh, local_batch)
+        outs = state.model.eval()(_on(img, dev, mesh, local_batch))
         total, cls_l, ofs_l = loss(outs, target)
         per_tot, per_cls, per_ofs = (torch.stack(v) for v in zip(
             *(loss(o, t) for o, t in zip(outs, target))))
-        return torch.sigmoid(outs), {
-            "loss": total, "cls_loss": cls_l, "ofs_loss": ofs_l,
-            "per_sample_loss": per_tot, "per_sample_cls": per_cls,
-            "per_sample_ofs": per_ofs}
+        probs = torch.sigmoid(outs)
+        scalars = {"loss": total, "cls_loss": cls_l, "ofs_loss": ofs_l}
+        rows = {"per_sample_loss": per_tot, "per_sample_cls": per_cls,
+                "per_sample_ofs": per_ofs}
+        if mesh is not None:
+            scalars = _global_mean(scalars, mesh)
+        if mesh is not None and not local_batch:
+            rows = {k: all_gather_batch(v, mesh) for k, v in rows.items()}
+            probs = all_gather_batch(probs, mesh)
+        return probs, {**scalars, **rows}
     return step

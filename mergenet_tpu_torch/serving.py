@@ -3,10 +3,13 @@
 exact-mode overflow fallback (`mergenet_tpu/serving.py` is the
 reference).
 
-The reference shards the batch over a device mesh with `shard_map`;
-here the frames of a batch run one after another on one `device`.
-Serving over several cards waits for the port of the data-parallel
-layer.
+Frames of a batch run one after another on one `device`.  With a
+data-parallel `mesh` (`parallel.mesh.make_mesh`, one rank per card) the
+batch is sharded over its ranks, as the reference's `shard_map` shards
+it over the data axis: each rank serves its contiguous slice on its own
+card through the same single-card path (its own flagged frames
+included), and the masks, classes and overflow counts are all-gathered
+so that every rank returns the whole batch.
 
 Overflow fallback: `decode_hierarchical`'s capacities are budgets; an
 over-budget scene drops edges or pairs or freezes components (counted
@@ -24,13 +27,15 @@ from . import resolve_device
 from .decoder.device import decode_hierarchical, run_segmentation_device
 from .e2e import upsample_nearest
 from .models import logits_at, probs_at
+from .parallel.mesh import all_gather_batch, check_mesh, local_slice
 
 
 def build_serving_pipeline(model, num_classes, offsets, decode_size=None,
                            dtype=None, same_different_bias=0.0,
                            object_merge_factor=1.0,
                            merge_logprob_bias=0.03, hier_kwargs=None,
-                           overflow_fallback=False, device=None):
+                           overflow_fallback=False, device=None,
+                           mesh=None):
     """Returns serve(imgs) -> (masks, inst_classes[, overflow]).
 
     imgs: (B, H, W, 3) float images (numpy or tensor).  Masks come back
@@ -44,7 +49,11 @@ def build_serving_pipeline(model, num_classes, offsets, decode_size=None,
     resolution).  With `overflow_fallback=True` a third element follows:
     the per-frame overflow counts (B,) int32 (edges + pairs dropped +
     frozen components; 0 means the budgets held), and every frame with
-    a nonzero count is re-decoded with the exact mode."""
+    a nonzero count is re-decoded with the exact mode.  With `mesh`,
+    B must divide by its data axis; the model runs on the mesh's
+    device, and every rank returns the whole batch."""
+    if mesh is not None:
+        device = check_mesh(mesh).device
     dev = resolve_device(device)
     model = copy.deepcopy(model).to(device=dev,
                                     dtype=dtype or torch.float32).eval()
@@ -57,12 +66,16 @@ def build_serving_pipeline(model, num_classes, offsets, decode_size=None,
         return img[None].to(dtype or torch.float32)
 
     def one(img, dh, dw):
-        logits = logits_at(model, net_input(img), (dh, dw))[0]
+        # raw logits into the decode's log domain; models without
+        # output_size (UNet) decode their resized probabilities
+        raw = logits_at(model, net_input(img), (dh, dw))
+        small = raw[0] if raw is not None \
+            else probs_at(model, net_input(img), (dh, dw))[0]
         out = decode_hierarchical(
-            logits[..., :num_classes], logits[..., num_classes:],
+            small[..., :num_classes], small[..., num_classes:],
             num_classes, offsets, relabel=True,
-            return_stats=overflow_fallback, from_logits=True, device=dev,
-            **hyper, **(hier_kwargs or {}))
+            return_stats=overflow_fallback, from_logits=raw is not None,
+            device=dev, **hyper, **(hier_kwargs or {}))
         if overflow_fallback:
             mask, inst_class, stats = out
             overflow = (stats["edges_dropped"] + stats["pairs_dropped"]
@@ -85,23 +98,30 @@ def build_serving_pipeline(model, num_classes, offsets, decode_size=None,
         row[:len(classes)] = torch.tensor(classes, dtype=torch.int32)
         return full, row
 
-    @torch.no_grad()
-    def serve(imgs):
-        imgs = torch.as_tensor(imgs, device=dev)
-        if not imgs.is_floating_point() or imgs.dim() != 4:
-            raise ValueError("imgs must be (B, H, W, 3) float")
+    def serve_local(imgs):
         H, W = imgs.shape[1:3]
         dh, dw = decode_size if decode_size else (H // 2, W // 2)
         outs = [one(img, dh, dw) for img in imgs]
         masks = torch.stack([o[0] for o in outs])
         inst_classes = torch.stack([o[1] for o in outs])
-        if not overflow_fallback:
-            return masks, inst_classes
         overflow = torch.stack([o[2] for o in outs]).to(torch.int32)
-        for b in torch.nonzero(overflow).flatten().tolist():
-            masks[b], inst_classes[b] = fallback(imgs[b], dh, dw,
-                                                 inst_classes.shape[1])
+        if overflow_fallback:
+            for b in torch.nonzero(overflow).flatten().tolist():
+                masks[b], inst_classes[b] = fallback(imgs[b], dh, dw,
+                                                     inst_classes.shape[1])
         return masks, inst_classes, overflow
+
+    @torch.no_grad()
+    def serve(imgs):
+        imgs = torch.as_tensor(imgs)
+        if not imgs.is_floating_point() or imgs.dim() != 4:
+            raise ValueError("imgs must be (B, H, W, 3) float")
+        if mesh is not None:
+            imgs = imgs[local_slice(imgs.shape[0], mesh)]
+        out = serve_local(imgs.to(dev))
+        if mesh is not None:
+            out = tuple(all_gather_batch(t, mesh) for t in out)
+        return out if overflow_fallback else out[:2]
 
     serve.model = model  # the copy it runs
     return serve

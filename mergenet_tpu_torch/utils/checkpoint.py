@@ -3,8 +3,12 @@ the reference): one `torch.save` file holding the parameters, the
 batch-norm statistics, the optimizer's momentum buffers and the update
 count, beside a `<name>.meta.json` with the epoch, the best IoU and the
 offset list (part of the model contract: inference reads it back).
-One process; the reference's multi-host barriers wait for the
-data-parallel slice.
+
+Under a `torch.distributed` process group of several ranks (the
+data-parallel mesh) the state is replicated: rank 0 alone removes a
+stale checkpoint, writes the files and copies `model_best`, fenced by
+barriers before and after as the reference's `save_checkpoint` is;
+every rank loads.
 
 `import_torch_checkpoint` reads a checkpoint of the original torch
 framework (`.pth.tar`) for `utils.weight_import`."""
@@ -14,14 +18,37 @@ import os
 import shutil
 
 import torch
+import torch.distributed as dist
+
+
+def _is_primary():
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _sync(tag):
+    """Barrier across the ranks (nothing for one process): the file
+    mutations around a save must not race the other ranks' loads."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def save_checkpoint(dir, state, is_best, offsets=None, epoch=None,
                     best_iou=None, filename="checkpoint"):
     """Save `state` as `dir`/`filename` (+ .meta.json); copy both to
-    `dir`/model_best when `is_best`."""
-    os.makedirs(dir, exist_ok=True)
+    `dir`/model_best when `is_best`.  Every rank calls it; rank 0
+    writes."""
     path = os.path.join(dir, filename)
+    if _is_primary():
+        os.makedirs(dir, exist_ok=True)
+        if os.path.exists(path):
+            os.remove(path)
+    _sync("mergenet:ckpt:pre-save")
+    if _is_primary():
+        _write(path, dir, state, is_best, offsets, epoch, best_iou)
+    _sync("mergenet:ckpt:post-save")
+
+
+def _write(path, dir, state, is_best, offsets, epoch, best_iou):
     params = dict(state.model.named_parameters())
     payload = {
         "params": {k: v.detach().cpu() for k, v in params.items()},

@@ -52,15 +52,25 @@ def test_resize_linear_uint8_random_sizes_equal_cv2():
 
 
 def test_resize_linear_float32_equals_cv2():
-    """Every single-channel case, and multi-channel ones that do not
-    widen the image (the two cases cv2 computes another way are the
-    strict xfail below)."""
+    """Every single-channel case, 3 channels where the image does not
+    widen (3 or 4 channels widened is the strict xfail below), and 2, 5,
+    9 and 10 channels (the class and offset maps `segment` resizes):
+    exact 2x shrinks (cv2's area-fast path, Cityscapes' 1024x2048 ->
+    512x1024 among them), other shrinks, widenings and identity."""
     rng = np.random.default_rng(2)
     cases = [(H, W, h, w, 1) for H, W, h, w in _sizes(rng, 80, lo=2)]
     cases += [(H, W, h, min(w, W), 3) for H, W, h, w in _sizes(rng, 80,
                                                                 lo=2)]
     cases += [(512, 1024, 256, 256, 3), (64, 64, 32, 32, 3),
               (45, 60, 512, 512, 1), (1024, 2048, 512, 1024, 3)]
+    for cn in (2, 5, 9, 10):
+        cases += [(H, W, h, w, cn) for H, W, h, w in _sizes(rng, 15)]
+        cases += [(2 * h, 2 * w, h, w, cn) for _, _, h, w in _sizes(rng, 4)]
+        cases += [(64, 96, 32, 48, cn), (64, 96, 40, 70, cn),
+                  (40, 60, 80, 130, cn), (37, 53, 37, 53, cn),
+                  (10, 3, 77, 75, cn), (1, 7, 5, 13, cn)]
+    cases += [(1024, 2048, 512, 1024, 9), (256, 512, 128, 256, 10),
+              (512, 1024, 512, 1024, 10)]
     for H, W, h, w, cn in cases:
         img = (rng.random((H, W, cn)) * 255).astype(np.float32)
         np.testing.assert_array_equal(imgproc.resize(img, (w, h)),
@@ -68,15 +78,25 @@ def test_resize_linear_float32_equals_cv2():
                                       err_msg=str((H, W, h, w, cn)))
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "float32 INTER_LINEAR that widens a multi-channel image, or from a "
-    "source with a single row or column: cv2 5.0 differs by an ulp at "
-    "some pixels there (ROADMAP.md section 3)"))
-@pytest.mark.parametrize("case", ["3 channels widened", "single row"])
+@pytest.mark.parametrize("case", [
+    pytest.param("3 channels widened", marks=pytest.mark.xfail(
+        strict=True, reason=(
+            "float32 INTER_LINEAR that widens a 3- or 4-channel image: "
+            "cv2 5.0 differs by an ulp at some pixels of the clamped "
+            "border columns (ROADMAP.md section 3)"))),
+    "single row"])
 def test_resize_linear_float32_cases_cv2_computes_otherwise(case):
+    """The two cases the first float32 route missed.  A source with a
+    single row or column takes cv2's weighted-sum route at any channel
+    count and is bit-equal; a 3-channel image widened is not."""
     rng = np.random.default_rng(8)
     if case == "single row":
         img, size = np.full((1, 1), 100.3, np.float32), (6, 94)
+        for shape, dsize in (((1, 31, 3), (36, 11)), ((49, 1), (8, 52)),
+                             ((1, 23, 4), (40, 39)), ((7, 1, 9), (3, 9))):
+            src = (rng.random(shape) * 255).astype(np.float32)
+            np.testing.assert_array_equal(imgproc.resize(src, dsize),
+                                          cv2.resize(src, dsize))
     else:
         img = (rng.random((10, 3, 3)) * 255).astype(np.float32)
         size = (75, 77)

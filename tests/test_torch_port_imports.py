@@ -35,7 +35,14 @@ SCRIPT = textwrap.dedent("""
               "utils.weight_import", "utils.caffe_import",
               "utils.inference_utils", "utils.profiling", "data.imgproc",
               "data.synthetic", "data.dataset", "data.data_io",
-              "data.pipeline", "certify"):
+              "data.pipeline", "certify", "parallel.mesh",
+              "parallel.spatial", "utils.visualization", "egs.common",
+              "egs.cityscape.train", "egs.cityscape.class_infer",
+              "egs.cityscape.offset_infer", "egs.cityscape.segment",
+              "egs.cityscape.infer_e2e", "egs.cityscape.evaluate",
+              "egs.cityscape.submit", "egs.cityscape.make_synthetic_data",
+              "egs.cityscape.convert_caffe_to_pytorch", "egs.coco.train",
+              "egs.coco.segment", "egs.coco.evaluate"):
         assert "mergenet_tpu_torch." + m in mods, m
     from mergenet_tpu_torch.decoder import csegment
     from mergenet_tpu_torch.e2e import masks_to_results
@@ -74,6 +81,12 @@ SCRIPT = textwrap.dedent("""
         next(iter(make_train_pipeline(os.path.join(d, "train"), ann, 2,
                                       16)[0]))
     imgproc.resize(np.zeros((9, 9), np.float32), (4, 5))
+    imgproc.resize(np.zeros((8, 8, 9), np.float32), (4, 4))
+    from mergenet_tpu_torch.utils.visualization import visualize_mask
+    visualize_mask(np.zeros((20, 30, 3), np.uint8),
+                   np.arange(600, dtype=np.int32).reshape(20, 30) %% 13)
+    from mergenet_tpu_torch.parallel import make_mesh, shard_batch
+    shard_batch(np.zeros((2, 3)), make_mesh(device="cpu"))
     rle.frPyObjects([[1.0, 1.0, 9.0, 1.0, 9.0, 9.0]], 12, 12)
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in %r
                     and sys.modules[n] is not None)
@@ -88,7 +101,7 @@ def test_port_imports_without_jax_flax_cv2_pil():
         [sys.executable, "-c", SCRIPT % (BLOCKED, BLOCKED)], cwd=ROOT,
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split("IMPORTED")[1]) >= 25
+    assert int(proc.stdout.split("IMPORTED")[1]) >= 45
 
 
 def test_no_reference_imports_in_port_sources():
@@ -102,3 +115,19 @@ def test_no_reference_imports_in_port_sources():
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, (f, hits)
+
+
+def test_port_shell_drivers_call_only_the_port():
+    """The recipes' shell twins run `python3 -m mergenet_tpu_torch.egs...`
+    and name neither the JAX recipes' folder nor the JAX package."""
+    scripts = sorted((ROOT / "mergenet_tpu_torch" / "egs").rglob("*.sh"))
+    assert len(scripts) == 5
+    for f in scripts:
+        text = f.read_text()
+        assert "egs/" not in text and "mergenet_tpu." not in text, f
+        code = [ln for ln in text.splitlines()
+                if not ln.lstrip().startswith("#")]
+        for line in code:  # every interpreter runs a module (-m)
+            assert not re.search(r"\bpython3?\b(?!\s+-m\b)", line), (f, line)
+        if f.name != "parse_options.sh":
+            assert "mergenet_tpu_torch.egs." in "\n".join(code), f

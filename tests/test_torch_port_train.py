@@ -50,6 +50,7 @@ from mergenet_tpu_torch.models import (VALID_ARCHS, PSPFPNet, UNet, get_model,
                                        init_model, logits_at, param_count,
                                        probs_at)
 from mergenet_tpu_torch.models.resnet import STAGE_BLOCKS
+from mergenet_tpu_torch.parallel import Mesh
 from mergenet_tpu_torch.parallel import train as TT
 from mergenet_tpu_torch.utils import logging as tlog
 from mergenet_tpu_torch.utils import train_utils as TU
@@ -463,18 +464,21 @@ def test_sample_pngs_and_scalar_log(unet_ref, tmp_path, monkeypatch):
 
 
 def test_entry_points_need_the_card_and_refuse_unported_options():
-    """No fallback: the default device is CUDA, which this machine lacks;
-    data parallelism waits for a later slice (the aux head is ported:
-    `test_torch_port_aux.py`)."""
+    """No fallback: the default device is CUDA, which this machine lacks.
+    The steps take the port's data-parallel `Mesh` only (a JAX mesh or
+    any other object is a TypeError), and no spatial or model axis
+    above 1 (`test_torch_port_parallel.py` runs the data axis)."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TT.create_train_state(get_model(C, O, "unet_small"),
                               TT.make_optimizer())
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="Mesh"):
         TT.build_train_step(C, O, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TT.build_train_step_compact(C, SPIRAL_OFFSETS, mesh=object())
+    spatial = Mesh({"data": 1, "spatial": 2, "model": 1}, 0, 2,
+                   torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="data axis only"):
+        TT.build_train_step_compact(C, SPIRAL_OFFSETS, mesh=spatial)
 
 
 # ------------------------------------------------ PSPFPNet compact step

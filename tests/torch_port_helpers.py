@@ -232,3 +232,184 @@ def write_pspnet_caffemodel(path, model, layer):
             f.write(rec)
             n += len(rec)
     return n
+
+
+# ------------------------------------------------ data-parallel ranks
+
+def spawn_ranks(worker, world, tmp_dir, payload):
+    """Run `worker(mesh, payload, out_dir)` on `world` gloo ranks of the
+    CPU (torch.multiprocessing.spawn; the rendezvous is a FileStore
+    under `tmp_dir`, no ports), one torch thread each; returns each
+    rank's result (what `worker` returned, through torch.save) in rank
+    order."""
+    import torch
+    import torch.multiprocessing as mp
+    with open(os.path.join(tmp_dir, "payload.pt"), "wb") as f:
+        torch.save(payload, f)
+    mp.spawn(_rank_main, args=(world, str(tmp_dir), worker), nprocs=world,
+             join=True)
+    return [torch.load(os.path.join(tmp_dir, "rank%d.pt" % r),
+                       weights_only=False) for r in range(world)]
+
+
+def _rank_main(rank, world, tmp_dir, worker):
+    import torch
+    import torch.distributed as dist
+    from mergenet_tpu_torch.parallel import make_mesh
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(tmp_dir, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world)
+    try:
+        payload = torch.load(os.path.join(tmp_dir, "payload.pt"),
+                             weights_only=False)
+        out = worker(make_mesh(device="cpu"), payload, tmp_dir)
+        torch.save(out, os.path.join(tmp_dir, "rank%d.pt" % rank))
+    finally:
+        if dist.is_initialized():  # a recipe may have left the group
+            dist.destroy_process_group()
+
+
+def _state_arrays(model):
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in model.state_dict().items()}
+
+
+def train_ranks_worker(mesh, p, tmp_dir):
+    """One rank of `tests/test_torch_port_parallel.py`: the port's
+    unet_small steps over `mesh` from the payload's Flax variables
+    (`build_train_step` for p["steps"] batches, then one
+    `build_train_step_compact` step from the same start, each also fed
+    this rank's shard with `local_batch=True`), the eval step through
+    `validate(pad_to=2)` and on a shard, `shard_batch`, the checkpoint
+    barriers (which ranks remove a stale file, what each rank loads),
+    and last the train recipe under this process group (it leaves the
+    group)."""
+    import contextlib
+    import io
+
+    import torch
+    from mergenet_tpu_torch.convert import load_flax_weights
+    from mergenet_tpu_torch.models import get_model
+    from mergenet_tpu_torch.parallel import shard_batch
+    from mergenet_tpu_torch.parallel.mesh import local_slice
+    from mergenet_tpu_torch.parallel import train as T
+    from mergenet_tpu_torch.utils import checkpoint as CK
+    from mergenet_tpu_torch.utils.train_utils import validate
+    C, O, alpha = p["C"], p["O"], p["alpha"]
+
+    def state():
+        model = load_flax_weights(get_model(C, O, "unet_small"),
+                                  p["params"], p["batch_stats"])
+        tx = T.make_optimizer(lr=0.01)
+        return T.TrainState(step=0, model=model,
+                            optimizer=tx.init(model.parameters()), tx=tx)
+
+    out = {"rank": mesh.rank, "world": mesh.world, "shape": mesh.shape,
+           "shard": shard_batch({"img": p["batches"][0][0]}, mesh)[
+               "img"].numpy()}
+    s = state()
+    step = T.build_train_step(C, O, alpha=alpha, mesh=mesh)
+    out["losses"] = []
+    for img, tg in p["batches"]:
+        s, m = step(s, img, tg)
+        out["losses"].append({k: float(v) for k, v in m.items()})
+    out["after"] = _state_arrays(s.model)
+    sc = state()
+    step = T.build_train_step_compact(C, p["offsets"], alpha=alpha,
+                                      mesh=mesh)
+    sc, m = step(sc, *p["compact"])
+    out["compact_loss"] = {k: float(v) for k, v in m.items()}
+    out["compact_after"] = _state_arrays(sc.model)
+
+    # the same steps fed this rank's shard only, as a sharded loader does
+    def mine(x):
+        return x[local_slice(len(x), mesh)]
+    sl = state()
+    step = T.build_train_step(C, O, alpha=alpha, mesh=mesh,
+                              local_batch=True)
+    for img, tg in p["batches"]:
+        sl, _ = step(sl, mine(img), mine(tg))
+    out["after_local"] = _state_arrays(sl.model)
+    sl = state()
+    step = T.build_train_step_compact(C, p["offsets"], alpha=alpha,
+                                      mesh=mesh, local_batch=True)
+    sl, _ = step(sl, *map(mine, p["compact"]))
+    out["compact_after_local"] = _state_arrays(sl.model)
+
+    evaluate = T.build_eval_step(C, O, alpha=alpha, mesh=mesh)
+    img, tg = p["val"][0]
+    probs, m = evaluate(s, img, tg)
+    out["eval"] = (probs.numpy(), float(m["loss"]))
+    probs, m = T.build_eval_step(C, O, alpha=alpha, mesh=mesh,
+                                 local_batch=True)(s, mine(img), mine(tg))
+    out["eval_local"] = (probs.numpy(), float(m["loss"]))
+    out["val"] = validate(p["val"], s, evaluate, 2, 0, 0, num_classes=C,
+                          offset_list=p["offsets"], score=True, pad_to=2,
+                          print_freq=100)
+
+    # checkpoints: a stale file first, then the barrier-fenced save
+    exp = os.path.join(tmp_dir, "exp")
+    if mesh.rank == 0:
+        os.makedirs(exp, exist_ok=True)
+        with open(os.path.join(exp, "checkpoint"), "w") as f:
+            f.write("stale")
+    torch.distributed.barrier()
+    removed, remove = [], os.remove
+    CK.os.remove = lambda path: (removed.append(path), remove(path))
+    try:
+        CK.save_checkpoint(exp, s, True, offsets=p["offsets"], epoch=1,
+                           best_iou=0.5)
+    finally:
+        CK.os.remove = remove
+    out["removed"] = removed
+    fresh = state()
+    fresh, meta = CK.load_checkpoint(os.path.join(exp, "model_best"), fresh)
+    out["loaded"] = _state_arrays(fresh.model)
+    out["loaded_step"], out["meta"] = fresh.step, meta
+
+    # the train recipe as torchrun starts it: each rank loads its slice
+    # (`--tensorboard`: which ranks configure the scalar log)
+    from mergenet_tpu_torch.egs.cityscape import train as recipe
+    from mergenet_tpu_torch.utils import logging as tb
+    os.environ["WORLD_SIZE"] = str(mesh.world)
+    out["recipe_logs"], out["recipe_batches"] = [], []
+    tb.configure = out["recipe_logs"].append
+    build = recipe.build_train_step_compact
+
+    def recording(*args, **kwargs):  # the batch each step is given
+        step = build(*args, **kwargs)
+
+        def rec(state, image, *rest):
+            out["recipe_batches"].append(len(image))
+            return step(state, image, *rest)
+        return rec
+    recipe.build_train_step_compact = recording
+    with contextlib.redirect_stdout(io.StringIO()):
+        out["recipe_rc"] = recipe.main(p["recipe"] + [
+            os.path.join(tmp_dir, "recipe"), "--tensorboard"])
+    return out
+
+
+def serve_ranks_worker(mesh, p, tmp_dir):
+    """One rank of `tests/test_torch_port_parallel_serving.py`: the
+    serving pipeline over `mesh` (and with the overflow fallback on
+    frames only one rank overflows) and `build_sharded_forward`, on a
+    UNet holding the payload's Flax variables."""
+    from mergenet_tpu_torch.convert import load_flax_weights
+    from mergenet_tpu_torch.models.unet import UNet
+    from mergenet_tpu_torch.parallel.spatial import build_sharded_forward
+    from mergenet_tpu_torch.serving import build_serving_pipeline
+    out = {}
+    for name, case in p["cases"].items():
+        model = load_flax_weights(UNet(p["C"], len(p["offsets"]), depth=2,
+                                       start_filts=8), *case["weights"])
+        serve = build_serving_pipeline(
+            model, p["C"], p["offsets"], decode_size=(16, 16),
+            hier_kwargs=case["hier"], overflow_fallback=case["fallback"],
+            mesh=mesh)
+        out[name] = [t.numpy() for t in serve(case["imgs"])]
+        if name == "plain":
+            fwd = build_sharded_forward(model, mesh)
+            out["forward"] = fwd(case["imgs"]).numpy()
+    return out
