@@ -47,6 +47,12 @@ after:
 - the data slice: the certification dataset regenerated by the port's
   generator (`data/synthetic.py`), held equal to the committed val json
   and bench images;
+- the Cityscapes converter: the 50 regenerated val images as a gtFine
+  tree (16-bit `*_gtFine_instanceIds.png`), converted by the
+  `prepare_data.sh` twin as a subprocess, the converted masks held
+  against the source masks, and one hier decode of the 50 images on the
+  card (floodscan, absorb, tgather) scored against the original and the
+  converted json;
 - certification (c): the committed bench_ckpt.npz as a float32 net on
   the 50 regenerated val images, hier and exact decodes on the card
   (`certify.score`; floodscan, absorb, tgather), mask-AP against the
@@ -69,7 +75,7 @@ after:
 Every check raises; the exit code is 0 only when all phases pass.
 Prints one line per phase, `train {...}`, `zoo {...}`,
 `class_inference {...}`, `staged {...}`, `data {...}`,
-`certification_c {...}`, `certification_d {...}`, `recipes {...}` and
+`converter {...}`, `certification_c {...}`, `certification_d {...}`, `recipes {...}` and
 `train_aux {...}` lines
 (times, throughput, peak memory, FLOPs, shares of the bf16 peak), the
 new phases' spans (`utils/profiling.Stopwatch`), the summary, then the
@@ -77,12 +83,13 @@ card, the kernels line, and last `{"ok": true, "device": {...}}`.
 
 Needs a CUDA device and the repository around it (the port,
 tests/fixtures/certification512 and the tests' shared data makers in
-tests/torch_port_helpers.py); imports torch, numpy, pytest (through
-those helpers) and the standard library besides the port.  Writes
-nothing outside mergenet_tpu_torch/_build/ (the train phase's
-checkpoints, the synthetic caffemodel, the inference phases' maps, the
-regenerated dataset, the trained seed and the recipes' experiments go
-there).
+tests/torch_port_helpers.py); imports torch, numpy, scipy (the
+converter phase), pytest (through those helpers) and the standard
+library besides the port.  Writes nothing outside
+mergenet_tpu_torch/_build/ (the train phase's checkpoints, the synthetic
+caffemodel, the inference phases' maps, the regenerated dataset, the
+converter's tree and json, the trained seed and the recipes'
+experiments go there).
 """
 
 import json
@@ -254,6 +261,11 @@ RECIPE_LOSS_RTOL = 1e-3
 RECIPE_HEAD_TOL = 1e-5
 RECIPE_TIMEOUT_S = 300
 RECIPE_HALF_IMAGES = 4  # segment at the recipe's 2x shrink, card vs CPU
+# converter phase: the Cityscapes label id of each certification class
+# 1-8 (person, rider, car, truck, bus, train, motorcycle, bicycle), which
+# the converter maps back to category ids 1-8
+CONVERTER_LABEL_IDS = (24, 25, 26, 27, 28, 31, 32, 33)
+CONVERTER_TIMEOUT_S = 300
 
 
 def phase(name):
@@ -1317,6 +1329,251 @@ def data_phase(smi, sw):
         raise AssertionError("the regenerated dataset differs from the "
                              "committed fixtures")
     return out, data_dir
+
+
+def converter_phase(drive, smi, sw, data_dir):
+    """The Cityscapes converter on a gtFine tree built from the
+    regenerated val split: each image's visible instances written as a
+    16-bit `*_gtFine_instanceIds.png` (label id * 1000 + k), its
+    `*_gtFine_polygons.json` without objects and its image linked as
+    `*_leftImg8bit.png`; then the port's `prepare_data.sh` twin as a
+    subprocess.  Gates: every converted annotation has its source's class
+    and pixel count; its polygons, filled by `imgproc.poly_mask`, equal
+    the source mask wherever that is one 8-connected component without
+    holes; the 50 images decoded once with hier on the card score the
+    same AP against the converted json as against the original json with
+    each differing mask replaced by its filled polygons and the
+    converted image and annotation ids.  The ids matter: the converter
+    numbers annotations from 0, as the reference does, and COCOeval (the
+    reference's and the port's) records a match by the ground truth's
+    id, so it never matches the one of id 0; and every detection scores
+    1, so the precision-recall curve follows the image order, which the
+    converter takes from the sorted file names."""
+    import contextlib
+    import io as _io
+    import shutil
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from scipy import ndimage
+
+    from mergenet_tpu_torch import certify as CT
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.data import COCO, imgproc, rle
+
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, "mergenet_tpu_torch", "_build", "converter")
+    shutil.rmtree(work, ignore_errors=True)
+    download = os.path.join(work, "download")
+    gt_dir = os.path.join(download, "gtFine_trainvaltest", "gtFine", "val",
+                          "cert")
+    left_dir = os.path.join(download, "leftImg8bit_trainvaltest",
+                            "leftImg8bit", "val", "cert")
+    with sw.span("converter tree"):
+        os.makedirs(gt_dir)
+        os.makedirs(left_dir)
+        with open(os.path.join(data_dir, "annotations",
+                               "instancesonly_val.json")) as f:
+            src = json.load(f)
+        sources = {}  # image id -> [(instance id, class, mask)]
+        src_keys = []  # (image id, instance id) of each annotation
+        for a in src["annotations"]:
+            inst = sources.setdefault(a["image_id"], [])
+            iid = CONVERTER_LABEL_IDS[a["category_id"] - 1] * 1000 + len(inst)
+            inst.append((iid, a["category_id"], rle.decode(a["segmentation"])))
+            src_keys.append((a["image_id"], iid))
+        for img in src["images"]:
+            ids = np.zeros((img["height"], img["width"]), np.uint16)
+            for iid, _, m in sources.get(img["id"], []):
+                ids[m > 0] = iid  # the visible masks are disjoint
+            stem = "cert_%d_" % img["id"]
+            io.write_png(os.path.join(gt_dir, stem + "gtFine_instanceIds.png"),
+                         ids)
+            with open(os.path.join(gt_dir, stem + "gtFine_polygons.json"),
+                      "w") as f:
+                json.dump({"imgWidth": img["width"],
+                           "imgHeight": img["height"], "objects": []}, f)
+            os.symlink(os.path.join(data_dir, "val", img["file_name"]),
+                       os.path.join(left_dir, stem + "leftImg8bit.png"))
+    tree_s = sw.totals["converter tree"]
+
+    out_dir = os.path.join(work, "data")
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable) + os.pathsep
+               + os.environ.get("PATH", ""))
+
+    def convert():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            ["bash", os.path.join(HERE, "mergenet_tpu_torch", "egs",
+                                  "cityscape", "prepare_data.sh"),
+             "--dataset-dir", download, "--out-dir", out_dir], cwd=work,
+            env=env, capture_output=True, text=True,
+            timeout=CONVERTER_TIMEOUT_S)
+        return proc, time.perf_counter() - t0
+
+    # the conversion runs on the host beside the decode on the card
+    with ThreadPoolExecutor(1) as pool:
+        converting = pool.submit(convert)
+        offsets = io.load_offsets(FIX)
+        net = CT.load_bench_net(os.path.join(FIX, "bench_ckpt.npz"),
+                                9 + len(offsets))
+        with sw.span("converter decode"):
+            r = drive("converter", lambda: CT.score(
+                net, data_dir, 9, offsets, ("hier",)),
+                ("floodscan", "absorb", "tgather"))
+        del net
+        proc, convert_s = converting.result()
+    decode_s = sw.totals["converter decode"]
+    if proc.returncode != 0:
+        raise AssertionError("prepare_data.sh exited %d: %s" % (
+            proc.returncode, (proc.stdout + proc.stderr)[-3000:]))
+    conv_path = os.path.join(out_dir, "annotations",
+                             "instancesonly_filtered_gtFine_val.json")
+    with open(conv_path) as f:
+        conv = json.load(f)
+    linked = len(os.listdir(os.path.join(out_dir, "val")))
+
+    # match each converted annotation to its source: both lists run in
+    # increasing instance id, the key is (class, bbox of the source mask)
+    src_of = {int(im["file_name"][len("cert_"):].split("_")[0]): im["id"]
+              for im in conv["images"]}
+    conv_anns = {}
+    for a in conv["annotations"]:
+        conv_anns.setdefault(a["image_id"], []).append(a)
+    checked = {"annotations": len(conv["annotations"]),
+               "sources": sum(len(v) for v in sources.values()),
+               "single_hole_free": 0, "single_hole_free_equal": 0,
+               "other": 0, "other_equal": 0, "class_area_equal": 0,
+               "missing": 0}
+    differing, refilled, ann_id = [], {}, {}
+    for i, conv_id in sorted(src_of.items()):
+        pending = list(conv_anns.get(conv_id, []))
+        for iid, cls, m in sorted(sources.get(i, []), key=lambda t: t[0]):
+            ys, xs = np.nonzero(m)
+            key = (cls, [float(xs.min()), float(ys.min()),
+                         float(xs.max() - xs.min() + 1),
+                         float(ys.max() - ys.min() + 1)])
+            if not pending or (pending[0]["category_id"],
+                               pending[0]["bbox"]) != key:
+                checked["missing"] += 1
+                differing.append({"image": i, "instance": iid,
+                                  "missing": True})
+                continue
+            a = pending.pop(0)
+            ann_id[(i, iid)] = a["id"]
+            checked["class_area_equal"] += int(a["area"] == float(ys.size))
+            # on the box around the mask and the polygons, one pixel wider
+            # where the image allows: the same components, holes and fill
+            pts = np.concatenate([np.reshape(p, (-1, 2))
+                                  for p in a["segmentation"]])
+            x0 = max(int(min(xs.min(), pts[:, 0].min())) - 1, 0)
+            y0 = max(int(min(ys.min(), pts[:, 1].min())) - 1, 0)
+            x1 = int(max(xs.max(), pts[:, 0].max())) + 2
+            y1 = int(max(ys.max(), pts[:, 1].max())) + 2
+            box = m[y0:y1, x0:x1]
+            filled = np.zeros_like(box)
+            for poly in a["segmentation"]:
+                shifted = (np.reshape(poly, (-1, 2)) - [x0, y0]).reshape(-1)
+                filled |= imgproc.poly_mask(shifted, *box.shape)
+            equal = bool(np.array_equal(filled, box))
+            _, parts = ndimage.label(box, structure=np.ones((3, 3)))
+            simple = parts == 1 and bool(np.array_equal(
+                ndimage.binary_fill_holes(box), box > 0))
+            kind = "single_hole_free" if simple else "other"
+            checked[kind] += 1
+            checked[kind + "_equal"] += int(equal)
+            if not equal:
+                differing.append({"image": i, "instance": iid,
+                                  "simple": simple, "pixels": int(
+                                      (filled != box).sum())})
+                refilled[(i, iid)] = np.zeros_like(m)
+                refilled[(i, iid)][y0:y1, x0:x1] = filled
+        if pending:
+            raise AssertionError("image %d: %d converted annotations match "
+                                 "no source" % (i, len(pending)))
+    print("  tree of %d images (%d instances) in %.2f s; prepare_data.sh "
+          "in %.2f s: %d annotations, %d images linked; class and area "
+          "equal: %d; one 8-connected component without holes: %d, masks "
+          "equal %d; other instances: %d (not gated), masks equal %d; "
+          "sources without an annotation: %d" % (
+              len(src["images"]), checked["sources"], tree_s, convert_s,
+              checked["annotations"], linked, checked["class_area_equal"],
+              checked["single_hole_free"], checked["single_hole_free_equal"],
+              checked["other"], checked["other_equal"], checked["missing"]),
+          flush=True)
+
+    with sw.span("converter score"):
+        with contextlib.redirect_stdout(_io.StringIO()):
+            coco_conv = COCO(conv_path)
+        res = [dict(d, image_id=src_of[d["image_id"]])
+               for d in r["results"]["hier"]]
+        ap_conv = CT.coco_ap(coco_conv, res)
+        # the original json with each differing mask replaced by its
+        # filled polygons, then also with the converted json's image and
+        # annotation ids: the converted json must score as the latter
+        def refilled_ap(tag, ids):
+            anns = []
+            spare = max([a["id"] for a in conv["annotations"]], default=0)
+            for a, key in zip(src["annotations"], src_keys):
+                if ids:
+                    spare += key not in ann_id
+                    a = dict(a, id=ann_id.get(key, spare),
+                             image_id=src_of[a["image_id"]])
+                if key in refilled:
+                    code = rle.encode(np.asfortranarray(refilled[key]))
+                    a = dict(a, segmentation={
+                        "size": code["size"],
+                        "counts": code["counts"].decode("ascii")})
+                anns.append(a)
+            images = [dict(im, id=src_of[im["id"]]) if ids else im
+                      for im in src["images"]]
+            path = os.path.join(work, "refilled_%s_val.json" % tag)
+            with open(path, "w") as f:
+                json.dump(dict(src, images=images, annotations=anns), f)
+            with contextlib.redirect_stdout(_io.StringIO()):
+                coco = COCO(path)
+            return CT.coco_ap(coco, res if ids else r["results"]["hier"])
+
+        ap_masks = refilled_ap("masks", False)
+        ap_ref = refilled_ap("ids", True)
+    score_s = sw.totals["converter score"]
+    ap_orig = r["hier"]
+    same_ref = ap_ref == ap_conv
+    print("  hier on the card, AP / AP50: %.4f / %.4f against "
+          "instancesonly_val.json; %.4f / %.4f with the %d differing "
+          "masks refilled from their polygons (%+.4f); %.4f / %.4f with "
+          "the converted image and annotation ids too (%+.4f); %.4f / %.4f "
+          "against the converted json (exact: %r, %r, %r, %r); differing: "
+          "%s" % (
+              ap_orig[0], ap_orig[1], ap_masks[0], ap_masks[1],
+              len(differing), ap_masks[0] - ap_orig[0], ap_ref[0],
+              ap_ref[1], ap_ref[0] - ap_masks[0], ap_conv[0], ap_conv[1],
+              ap_orig, ap_masks, ap_ref, ap_conv, differing), flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print("  converter phase %.2f s: tree %.2f s, conversion %.2f s (a "
+          "subprocess beside the decode), hier decode of the 50 images "
+          "%.2f s, three COCOevals %.2f s (%s)" % (
+              phase_s, tree_s, convert_s, decode_s, score_s, smi),
+          flush=True)
+    gates = [("class and area", checked["class_area_equal"]
+              == checked["annotations"] == checked["sources"]
+              - checked["missing"]),
+             ("hole-free single components equal",
+              checked["single_hole_free_equal"]
+              == checked["single_hole_free"]),
+             ("AP equal to the refilled original's", same_ref)]
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        raise AssertionError("converter gates failed: %s" % failed)
+    return {"checked": checked, "differing": differing,
+            "ap_original": ap_orig, "ap_refilled_masks": ap_masks,
+            "ap_refilled_masks_ids": ap_ref, "ap_converted": ap_conv,
+            "images_linked": linked,
+            "seconds": {"phase": phase_s, "tree": tree_s,
+                        "convert": convert_s, "decode": decode_s,
+                        "score": score_s},
+            "hier_s": r["times_s"]["hier"], "net_s": r["times_s"]["net"]}
 
 
 def cert_c_phase(drive, smi, sw, data_dir):
@@ -2442,6 +2699,10 @@ def main():
           "seed 100, 60 + 50 images of 512x1024)")
     data, data_dir = data_phase(smi, sw)
     print("data " + json.dumps({"card": smi, **data}), flush=True)
+    phase("converter: a gtFine tree of the 50 val images -> the "
+          "prepare_data.sh twin -> masks and hier AP on the converted json")
+    converter = converter_phase(drive, smi, sw, data_dir)
+    print("converter " + json.dumps({"card": smi, **converter}), flush=True)
     phase("certification (c): bench_ckpt on the 50 regenerated val images "
           "(hier and exact)")
     cert_c = cert_c_phase(drive, smi, sw, data_dir)
@@ -2519,7 +2780,7 @@ def main():
                "train": train, "zoo": zoo, "class_inference": cls_inf,
                "staged": staged, "train_aux": train_aux, "data": data,
                "certification_c": cert_c, "certification_d": cert_d,
-               "recipes": recipes,
+               "recipes": recipes, "converter": converter,
                "launches_by_path": paths,
                "total_s": time.perf_counter() - T0}
     print("summary " + json.dumps(summary), flush=True)

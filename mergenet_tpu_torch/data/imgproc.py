@@ -16,18 +16,22 @@ function here reproduces what cv2 computes, not an approximation of it:
   pass into int32, and a vertical pass that drops 4 bits of each row
   before a 16-bit multiply-high, then rounds the sum by `(s + 2) >> 2`.
 - float32 INTER_LINEAR takes one of cv2's three routes.  At 1, 3 and 4
-  channels each pass interpolates as `fma(b - a, t, a)`, with `t` the
-  float32 of the double fractional position.  At 2 or 5 and more
-  channels, and from a source with a single row or column, each pass
+  channels (cv2's IPP resize, AVX-512 code) each pass interpolates as
+  `fma(b - a, t, a)`, with `t` the float32 of the double fractional
+  position, but for the vertical blend of the clamped border columns of
+  a widened 3- or 4-channel image: IPP takes each side's run of such
+  columns in blocks of 16 pixels, then the rest, and blends unfused, `a
+  + (b - a) * t` rounded twice, on a 4-channel image's whole blocks and
+  on a rest of 5 to 15 columns (all channels at 4, channels 0 and 1 at
+  3; a rest of 1 to 4 columns and 3-channel blocks stay fused).  At 2
+  or 5 and more channels, and from a source with a single row or
+  column, each pass
   computes `S0 * w0 + S1 * w1` with float32 taps (the position cast to
   float first, `w0 = 1 - w1`), each product and the sum rounded to
   float32; the vertical weights are not clamped at the borders, only
   the rows are.  An exact 2x shrink in both axes at 2 or 5 and more
   channels is cv2's area-fast path: `(((S0[2x] + S0[2x+1]) + S1[2x])
-  + S1[2x+1]) * 0.25`.  One case is not reproduced, and there a value
-  can be an ulp off cv2's: a 3- or 4-channel image widened, at some
-  pixels of its clamped border columns (seen with sources up to 13
-  columns wide).
+  + S1[2x+1]) * 0.25`.
 - Source positions are `(d + 0.5) * scale - 0.5` in double, `scale` =
   src / dst for INTER_LINEAR and `floor(d / (dst / src))` for
   INTER_NEAREST, as cv2 computes them.
@@ -150,6 +154,31 @@ def _fma32(a, b, c):
     return np.where(back, r, out).astype(np.float32)
 
 
+#: IPP's blocks of clamped border columns, and the shortest rest of a
+#: run that it blends unfused
+_IPP_BORDER_BLOCK = 16
+_IPP_BORDER_REST = 5
+
+
+def _border_unfused(dw, W, cn):
+    """(dw, cn) bool: the destination columns and channels whose vertical
+    blend cv2's IPP route computes unfused (the clamped border runs of a
+    widened 3- or 4-channel image, module docstring)."""
+    out = np.zeros((dw, cn), bool)
+    if cn not in (3, 4):
+        return out
+    sx = np.floor((np.arange(dw, dtype=np.float64) + 0.5) * (W / dw) - 0.5)
+    for run in (np.flatnonzero(sx < 0), np.flatnonzero(sx >= W - 1)):
+        n = run.size
+        whole = np.arange(n) < n - n % _IPP_BORDER_BLOCK
+        rest = ~whole & (n % _IPP_BORDER_BLOCK >= _IPP_BORDER_REST)
+        if cn == 4:
+            out[run] = (whole | rest)[:, None]
+        else:
+            out[run, :2] = rest[:, None]
+    return out
+
+
 def _resize_linear_f32(img, dw, dh):
     H, W = img.shape[:2]
     src = img.reshape(H, W, -1).astype(np.float32)
@@ -165,7 +194,9 @@ def _resize_linear_f32(img, dw, dh):
     t[lo], sy[lo] = 0, 0
     a = rows[np.clip(sy, 0, H - 1)]
     b = rows[np.clip(sy + 1, 0, H - 1)]
-    out = _fma32(b - a, np.broadcast_to(t[:, None, None], a.shape), a)
+    t = np.broadcast_to(t[:, None, None], a.shape)
+    out = np.where(_border_unfused(dw, W, src.shape[2])[None],
+                   a + (b - a) * t, _fma32(b - a, t, a))
     return out.reshape((dh, dw) + img.shape[2:])
 
 

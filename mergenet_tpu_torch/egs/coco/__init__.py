@@ -1,2 +1,3 @@
 """COCO recipes of the port (`egs/coco/local` is the reference): train,
-segment (with the oracle mode), evaluate, and run_pspfpnet_crop.sh."""
+segment (with the oracle mode), evaluate, and the shell drivers
+run_pspfpnet_crop.sh and prepare_data.sh."""

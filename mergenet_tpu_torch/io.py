@@ -1,7 +1,9 @@
 """Readers for the committed fixtures: the Flax-tree npz checkpoint,
-PNGs (every non-interlaced colour type, read as cv2 reads them), and
-the certification probability maps; and an 8-bit PNG writer (grayscale
-or RGB) for the training samples and the synthetic dataset.
+PNGs (every non-interlaced colour type, read as cv2 reads them, and
+8- or 16-bit grayscale unchanged, as Cityscapes' instance-id maps are
+stored), and the certification probability maps; and a PNG writer
+(8-bit grayscale or RGB, 16-bit grayscale) for the training samples,
+the synthetic dataset and instance-id maps.
 
 Standard library and numpy only: the GPU machine has no cv2 or PIL."""
 
@@ -74,13 +76,11 @@ def _unfilter_row(ftype, row, prev, bpp):
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
-def read_png_rgb(path):
-    """(H, W, 3) uint8 RGB of a non-interlaced PNG, as `cv2.imread` (then
-    BGR -> RGB) gives it: RGB as stored; grey replicated to three
-    channels (1, 2 and 4-bit grey scaled to 0-255); palette indices
-    looked up in PLTE; alpha dropped; 16-bit samples keep their high
-    byte.  Interlaced files and unknown types raise ValueError naming
-    them."""
+def _read_png(path):
+    """(samples (H, W, ch), colour type, bit depth, PLTE) of a
+    non-interlaced PNG: 8- and 16-bit samples as uint8 and big-endian
+    uint16, 1-, 2- and 4-bit ones unpacked to uint8 (unscaled).
+    Interlaced files and unknown types raise ValueError naming them."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
@@ -125,25 +125,51 @@ def read_png_rgb(path):
     prev = np.zeros(row_bytes, np.uint8)
     for i in range(H):
         prev = rows[i] = _unfilter_row(int(raw[i, 0]), raw[i, 1:], prev, bpp)
-    if depth == 16:  # big-endian samples: keep the high byte
-        samples = rows.reshape(H, W * ch, 2)[..., 0]
+    if depth == 16:  # big-endian samples
+        samples = rows.view(">u2").astype(np.uint16)
     elif depth == 8:
         samples = rows
     else:
         bits = np.unpackbits(rows, axis=1).reshape(H, -1, depth)[:, :W]
         samples = (bits * (1 << np.arange(depth - 1, -1, -1))).sum(
             -1).astype(np.uint8)
-        if color == 0:
-            samples = samples * np.uint8(255 // ((1 << depth) - 1))
-    samples = samples.reshape(H, W, ch)
+    return samples.reshape(H, W, ch), color, depth, plte
+
+
+def read_png_rgb(path):
+    """(H, W, 3) uint8 RGB of a non-interlaced PNG, as `cv2.imread` (then
+    BGR -> RGB) gives it: RGB as stored; grey replicated to three
+    channels (1, 2 and 4-bit grey scaled to 0-255); palette indices
+    looked up in PLTE; alpha dropped; 16-bit samples keep their high
+    byte.  Interlaced files and unknown types raise ValueError naming
+    them."""
+    samples, color, depth, plte = _read_png(path)
+    if depth == 16:
+        samples = (samples >> 8).astype(np.uint8)
+    elif depth < 8 and color == 0:
+        samples = samples * np.uint8(255 // ((1 << depth) - 1))
     if color == 3:
         idx = samples[..., 0]
         if int(idx.max(initial=0)) >= len(plte):
             raise ValueError("%s: palette index past PLTE" % path)
         return plte[idx]
-    if ch <= 2:  # grey (+ alpha)
+    if samples.shape[2] <= 2:  # grey (+ alpha)
         return np.repeat(samples[..., :1], 3, axis=2)
     return np.ascontiguousarray(samples[..., :3])
+
+
+def read_png_gray(path):
+    """(H, W) array of an 8- or 16-bit grayscale PNG with its samples
+    unchanged, as `cv2.imread(path, cv2.IMREAD_UNCHANGED)` gives it:
+    uint8 at 8 bits, uint16 with the full big-endian value at 16 (a
+    Cityscapes `*_instanceIds.png`).  Any other colour type or bit
+    depth raises ValueError naming it, as do interlaced files."""
+    samples, color, depth, _ = _read_png(path)
+    if color != 0 or depth not in (8, 16):
+        raise ValueError("%s: read_png_gray reads 8- and 16-bit grayscale "
+                         "PNGs only, got colour type %d at bit depth %d"
+                         % (path, color, depth))
+    return np.ascontiguousarray(samples[..., 0])
 
 
 def _chunk(ctype, body):
@@ -152,9 +178,12 @@ def _chunk(ctype, body):
 
 
 def write_png(path, img):
-    """Write an (H, W) grayscale or (H, W, 3) RGB uint8 image as an 8-bit
-    non-interlaced PNG (every scanline unfiltered)."""
-    img = np.ascontiguousarray(img, dtype=np.uint8)
+    """Write an (H, W) grayscale or (H, W, 3) RGB image as a
+    non-interlaced PNG (every scanline unfiltered): 16-bit grayscale for
+    a 2-D uint16 array, 8-bit (the values cast to uint8) otherwise."""
+    img = np.asarray(img)
+    depth = 16 if img.ndim == 2 and img.dtype == np.uint16 else 8
+    img = np.ascontiguousarray(img, dtype=">u2" if depth == 16 else np.uint8)
     if img.ndim == 2:
         color = 0
     elif img.ndim == 3 and img.shape[2] == 3:
@@ -164,11 +193,11 @@ def write_png(path, img):
                          % (img.shape,))
     H, W = img.shape[:2]
     rows = np.concatenate([np.zeros((H, 1), np.uint8),
-                           img.reshape(H, -1)], axis=1)
+                           img.reshape(H, -1).view(np.uint8)], axis=1)
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n"
-                + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, color,
-                                              0, 0, 0))
+                + _chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth,
+                                              color, 0, 0, 0))
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
                 + _chunk(b"IEND", b""))
 

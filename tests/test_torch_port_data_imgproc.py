@@ -53,7 +53,7 @@ def test_resize_linear_uint8_random_sizes_equal_cv2():
 
 def test_resize_linear_float32_equals_cv2():
     """Every single-channel case, 3 channels where the image does not
-    widen (3 or 4 channels widened is the strict xfail below), and 2, 5,
+    widen (3 or 4 channels widened: the sweep below), and 2, 5,
     9 and 10 channels (the class and offset maps `segment` resizes):
     exact 2x shrinks (cv2's area-fast path, Cityscapes' 1024x2048 ->
     512x1024 among them), other shrinks, widenings and identity."""
@@ -78,17 +78,12 @@ def test_resize_linear_float32_equals_cv2():
                                       err_msg=str((H, W, h, w, cn)))
 
 
-@pytest.mark.parametrize("case", [
-    pytest.param("3 channels widened", marks=pytest.mark.xfail(
-        strict=True, reason=(
-            "float32 INTER_LINEAR that widens a 3- or 4-channel image: "
-            "cv2 5.0 differs by an ulp at some pixels of the clamped "
-            "border columns (ROADMAP.md section 3)"))),
-    "single row"])
+@pytest.mark.parametrize("case", ["3 channels widened", "single row"])
 def test_resize_linear_float32_cases_cv2_computes_otherwise(case):
     """The two cases the first float32 route missed.  A source with a
     single row or column takes cv2's weighted-sum route at any channel
-    count and is bit-equal; a 3-channel image widened is not."""
+    count; a 3-channel image widened blends its long clamped border runs
+    unfused (`imgproc._border_unfused`)."""
     rng = np.random.default_rng(8)
     if case == "single row":
         img, size = np.full((1, 1), 100.3, np.float32), (6, 94)
@@ -102,6 +97,43 @@ def test_resize_linear_float32_cases_cv2_computes_otherwise(case):
         size = (75, 77)
     np.testing.assert_array_equal(imgproc.resize(img, size),
                                   cv2.resize(img, size))
+
+
+def _clamped_runs(W, w):
+    fx = (np.arange(w) + 0.5) * (W / w) - 0.5
+    return int((np.floor(fx) < 0).sum()), int((np.floor(fx) >= W - 1).sum())
+
+
+#: (H, W, h, w): widened sources whose clamped border runs cover 1 to 16
+#: columns and past (one and two blocks of 16, with rests of 1-4 and
+#: 5-15), widened rows and shrunk rows
+WIDEN_CASES = ([(9, 2, 41, w) for w in range(3, 170, 4)]
+               + [(12, 2, 37, w) for w in (66, 88, 130, 151, 214, 263)]
+               + [(H, W, h, w) for H, W, h, w in (
+                   (10, 3, 77, 75), (20, 7, 33, 90), (13, 13, 40, 50),
+                   (30, 5, 12, 160), (7, 2, 600, 700), (64, 48, 512, 512),
+                   (100, 80, 1000, 900), (40, 11, 40, 250))])
+
+
+@pytest.mark.parametrize("cn", [3, 4])
+@pytest.mark.parametrize("scale", [255.0, 1e-3, 1e4])
+def test_resize_linear_float32_widened_3_4_channels_equal_cv2(cn, scale):
+    """A 3- or 4-channel float32 image widened is bit-equal to cv2 at
+    every clamped border run length from 1 column up, and on random
+    sizes that widen."""
+    rng = np.random.default_rng(cn * 100 + int(np.log10(scale)))
+    cases = WIDEN_CASES + [(int(H), int(W), int(h), int(rng.integers(
+        W + 1, 40 * W))) for H, W, h in zip(rng.integers(2, 30, 60),
+                                           rng.integers(2, 24, 60),
+                                           rng.integers(1, 90, 60))]
+    runs = set()
+    for H, W, h, w in cases:
+        img = (rng.random((H, W, cn)) * scale - scale / 4).astype(np.float32)
+        np.testing.assert_array_equal(imgproc.resize(img, (w, h)),
+                                      cv2.resize(img, (w, h)),
+                                      err_msg=str((H, W, h, w, cn)))
+        runs.update(_clamped_runs(W, w))
+    assert set(range(1, 41)) <= runs
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.int32])

@@ -1,8 +1,9 @@
 """The port runs where the GPU machine has no jax, flax, cv2, PIL or
 grain, and never imports the JAX package: every module of
 `mergenet_tpu_torch` and `chip_smoke.py` import, and a small decode, a
-forward and the data slice (generate, read, resize, fill a polygon,
-load a batch) run, in a subprocess where those modules are blocked."""
+forward, the data slice (generate, read, resize, fill a polygon, load a
+batch) and the Cityscapes converter run, in a subprocess where those
+modules are blocked."""
 
 import os
 import pathlib
@@ -42,7 +43,9 @@ SCRIPT = textwrap.dedent("""
               "egs.cityscape.infer_e2e", "egs.cityscape.evaluate",
               "egs.cityscape.submit", "egs.cityscape.make_synthetic_data",
               "egs.cityscape.convert_caffe_to_pytorch", "egs.coco.train",
-              "egs.coco.segment", "egs.coco.evaluate"):
+              "egs.coco.segment", "egs.coco.evaluate", "data.contours",
+              "egs.cityscape.convert_cityscapes_to_coco",
+              "egs.cityscape.cityscapes_labels"):
         assert "mergenet_tpu_torch." + m in mods, m
     from mergenet_tpu_torch.decoder import csegment
     from mergenet_tpu_torch.e2e import masks_to_results
@@ -88,6 +91,21 @@ SCRIPT = textwrap.dedent("""
     from mergenet_tpu_torch.parallel import make_mesh, shard_batch
     shard_batch(np.zeros((2, 3)), make_mesh(device="cpu"))
     rle.frPyObjects([[1.0, 1.0, 9.0, 1.0, 9.0, 9.0]], 12, 12)
+    import json
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.egs.cityscape import convert_cityscapes_to_coco
+    with tempfile.TemporaryDirectory() as d:
+        gt = os.path.join(d, "gtFine_trainvaltest", "gtFine", "val", "c")
+        os.makedirs(gt)
+        ids = np.zeros((16, 24), np.uint16)
+        ids[2:9, 3:12] = 26001
+        io.write_png(os.path.join(gt, "c_0_0_gtFine_instanceIds.png"), ids)
+        with open(os.path.join(gt, "c_0_0_gtFine_polygons.json"), "w") as f:
+            json.dump({"imgWidth": 24, "imgHeight": 16, "objects": []}, f)
+        convert_cityscapes_to_coco.main(["--dataset-dir", d, "--out-dir", d])
+        with open(os.path.join(
+                d, "instancesonly_filtered_gtFine_val.json")) as f:
+            assert json.load(f)["annotations"][0]["area"] == 63.0
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in %r
                     and sys.modules[n] is not None)
     assert not leaked, leaked
@@ -121,7 +139,11 @@ def test_port_shell_drivers_call_only_the_port():
     """The recipes' shell twins run `python3 -m mergenet_tpu_torch.egs...`
     and name neither the JAX recipes' folder nor the JAX package."""
     scripts = sorted((ROOT / "mergenet_tpu_torch" / "egs").rglob("*.sh"))
-    assert len(scripts) == 5
+    assert len(scripts) == 7
+    # the COCO twin of prepare_data.sh only links directories, as the
+    # reference's does: it runs no interpreter
+    links_only = ROOT / "mergenet_tpu_torch" / "egs" / "coco" / \
+        "prepare_data.sh"
     for f in scripts:
         text = f.read_text()
         assert "egs/" not in text and "mergenet_tpu." not in text, f
@@ -129,5 +151,5 @@ def test_port_shell_drivers_call_only_the_port():
                 if not ln.lstrip().startswith("#")]
         for line in code:  # every interpreter runs a module (-m)
             assert not re.search(r"\bpython3?\b(?!\s+-m\b)", line), (f, line)
-        if f.name != "parse_options.sh":
+        if f.name != "parse_options.sh" and f != links_only:
             assert "mergenet_tpu_torch.egs." in "\n".join(code), f
