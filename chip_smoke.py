@@ -47,6 +47,12 @@ after:
 - the data slice: the certification dataset regenerated by the port's
   generator (`data/synthetic.py`), held equal to the committed val json
   and bench images;
+- JPEG reading: the port's decoder (`data/jpeg.py`, host C++ built
+  with g++) on the committed JPEGs against cv2's digests, procedure
+  (c)'s hier column scored from the q90 JPEGs of the 50 val images
+  (floodscan, absorb, tgather) against the JAX package's AP on the same
+  files, the images that scoring read held to cv2's digests, and the
+  coco recipe's train loader on JPEG and PNG, its stages timed;
 - the Cityscapes converter: the 50 regenerated val images as a gtFine
   tree (16-bit `*_gtFine_instanceIds.png`), converted by the
   `prepare_data.sh` twin as a subprocess, the converted masks held
@@ -74,9 +80,9 @@ after:
 
 Every check raises; the exit code is 0 only when all phases pass.
 Prints one line per phase, `train {...}`, `zoo {...}`,
-`class_inference {...}`, `staged {...}`, `data {...}`,
-`converter {...}`, `certification_c {...}`, `certification_d {...}`, `recipes {...}` and
-`train_aux {...}` lines
+`class_inference {...}`, `staged {...}`, `data {...}`, `jpeg {...}`,
+`converter {...}`, `certification_c {...}`, `certification_d {...}`,
+`recipes {...}` and `train_aux {...}` lines
 (times, throughput, peak memory, FLOPs, shares of the bf16 peak), the
 new phases' spans (`utils/profiling.Stopwatch`), the summary, then the
 card, the kernels line, and last `{"ok": true, "device": {...}}`.
@@ -1329,6 +1335,189 @@ def data_phase(smi, sw):
         raise AssertionError("the regenerated dataset differs from the "
                              "committed fixtures")
     return out, data_dir
+
+
+def jpeg_phase(drive, paths, smi, sw, data_dir):
+    """JPEG reading (`data/jpeg.py`, host C++ built with g++ here): every
+    committed file of tests/fixtures/jpeg decoded and held to cv2's
+    SHA-256 (`cv2_digests.json`); procedure (c)'s hier column scored
+    from the 50 committed q90 JPEGs of the val images (`certify.score`
+    on the card: floodscan, absorb and tgather once per image), AP and
+    AP50 gated within CERT_JAX_AP_TOL of JAX's `c_jpeg` figure and every
+    image that scoring read held to cv2's digest; and the coco recipe's
+    train loader (`COCODataset` + `DataLoader`, crop 384, scale 2, batch
+    16, no step) timed on the JPEGs and on the PNGs of the same images,
+    with a span for each stage of an item (read, masks, resize, crop,
+    targets)."""
+    import contextlib
+    import hashlib
+    import io as _io
+    import json
+    import shutil
+
+    from mergenet_tpu_torch import certify as CT
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.data import COCODataset, DataLoader, imgproc, jpeg
+    from mergenet_tpu_torch.data import dataset as DS
+
+    fixj = os.path.join(HERE, "tests", "fixtures", "jpeg")
+    with open(os.path.join(fixj, "cv2_digests.json")) as f:
+        digests = json.load(f)
+    built = not os.path.exists(jpeg.library_path())
+    with sw.span("jpeg build"):
+        jpeg.build()
+    build_s = sw.totals["jpeg build"] if built else None
+    blobs = {}
+    for rel in digests:
+        with open(os.path.join(fixj, rel), "rb") as f:
+            blobs[rel] = f.read()
+    jpeg.decode_jpeg(blobs["val/val_00000.jpg"])  # load the library
+    wrong = []
+    val_s = 0.0
+    for rel, data in blobs.items():
+        t0 = time.perf_counter()
+        img = jpeg.decode_jpeg(data, rel)
+        dt = time.perf_counter() - t0
+        if rel.startswith("val/"):
+            val_s += dt
+        if [list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()] \
+                != [digests[rel]["shape"], digests[rel]["sha256"]]:
+            wrong.append(rel)
+    val = sorted(r for r in blobs if r.startswith("val/"))
+    val_bytes = sum(len(blobs[r]) for r in val)
+    ms_img = val_s / len(val) * 1e3
+    mb_s = val_bytes / val_s / 1e6
+    print("  decoder %s; %d files decoded, %d differ from cv2's digest; "
+          "512x1024 q90 4:2:0: %.3f ms per image, %.2f MB/s of JPEG, %.2f "
+          "Mpixel/s (host, %s)" % (
+              "built in %.2f s (g++)" % build_s if built else "cached",
+              len(blobs), len(wrong), ms_img, mb_s,
+              512 * 1024 * len(val) / val_s / 1e6, smi), flush=True)
+    if wrong:
+        raise AssertionError("JPEG decodes differ from cv2's: %s" % wrong)
+
+    jdir = os.path.join(HERE, "mergenet_tpu_torch", "_build", "jpeg_data")
+    shutil.rmtree(jdir, ignore_errors=True)
+    os.makedirs(os.path.join(jdir, "annotations"))
+    shutil.copytree(os.path.join(fixj, "val"), os.path.join(jdir, "val"))
+    with open(os.path.join(data_dir, "annotations",
+                           "instancesonly_val.json")) as f:
+        ann = json.load(f)
+    for im in ann["images"]:
+        im["file_name"] = os.path.splitext(im["file_name"])[0] + ".jpg"
+    with open(os.path.join(jdir, "annotations", "instancesonly_val.json"),
+              "w") as f:
+        json.dump(ann, f)
+    offsets = io.load_offsets(FIX)
+    net = CT.load_bench_net(os.path.join(FIX, "bench_ckpt.npz"),
+                            9 + len(offsets))
+    reads = {}  # what certify.score itself read: held to cv2's digests
+    imread = imgproc.imread_rgb
+
+    def hashed_imread(path):
+        img = imread(path)
+        reads["val/" + os.path.basename(path)] = [
+            list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()]
+        return img
+
+    imgproc.imread_rgb = hashed_imread
+    try:
+        with sw.span("jpeg (c) hier"):
+            r = drive("jpeg", lambda: CT.score(net, jdir, 9, offsets,
+                                               ("hier",)),
+                      ("floodscan", "absorb", "tgather"))
+    finally:
+        imgproc.imread_rgb = imread
+    del net
+    reads_equal = reads == {rel: [digests[rel]["shape"],
+                                  digests[rel]["sha256"]] for rel in val}
+    ap, jref = r["hier"], JAX_AP["c_jpeg"]["hier"]
+    png = JAX_AP["c"]["hier"]
+    print("  (c) hier from JPEG: AP %.4f AP50 %.4f | JAX (CPU, cv2.imread) "
+          "AP %.4f AP50 %.4f | from PNG, JAX: AP %.4f AP50 %.4f (JPEG q90 "
+          "minus PNG: AP %+.4f, AP50 %+.4f); %d images, overflow %s, net "
+          "%.2f s, hier %.2f s" % (
+              ap[0], ap[1], jref[0], jref[1], png[0], png[1], ap[0] - png[0],
+              ap[1] - png[1], r["images"], r["overflow"], r["times_s"]["net"],
+              r["times_s"]["hier"]), flush=True)
+    launches = dict(paths["jpeg"])
+    gates = [("AP within %.3f of JAX's" % CERT_JAX_AP_TOL,
+              abs(ap[0] - jref[0]) <= CERT_JAX_AP_TOL),
+             ("AP50 within %.3f of JAX's" % CERT_JAX_AP_TOL,
+              abs(ap[1] - jref[1]) <= CERT_JAX_AP_TOL),
+             ("score's reads of the %d JPEGs equal to cv2's digests"
+              % len(val), reads_equal),
+             ("zero overflow", not any(r["overflow"].values())),
+             ("one launch of each kernel per image",
+              all(launches.get(k) == r["images"]
+                  for k in ("floodscan", "absorb", "tgather")))]
+
+    # the loader's stages, each a span: the functions an item goes
+    # through are wrapped for the pass (imgproc.imread_rgb the read;
+    # dataset.py's anns_to_mask, resize_image_and_mask,
+    # crop_image_and_mask and mask_to_target_np); "other" is the rest
+    # (float conversion, batching)
+    stages = (("read", imgproc, "imread_rgb"),
+              ("masks", DS, "anns_to_mask"),
+              ("resize", DS, "resize_image_and_mask"),
+              ("crop", DS, "crop_image_and_mask"),
+              ("targets", DS, "mask_to_target_np"))
+
+    def spanned(name, fn):
+        def run(*a, **kw):
+            with sw.span(name):
+                return fn(*a, **kw)
+        return run
+
+    def loader_pass(kind, d):
+        with contextlib.redirect_stdout(_io.StringIO()):
+            ds = COCODataset(os.path.join(d, "val"), os.path.join(
+                d, "annotations", "instancesonly_val.json"), 9, offsets,
+                scale=2, crop=True, crop_size=384, seed=0)
+        loader = DataLoader(ds, batch_size=16, shuffle=True, drop_last=True)
+        saved = [(mod, attr, getattr(mod, attr)) for _, mod, attr in stages]
+        for (stage, mod, attr), (_, _, fn) in zip(stages, saved):
+            setattr(mod, attr, spanned("jpeg loader %s %s" % (kind, stage),
+                                       fn))
+        try:
+            with sw.span("jpeg loader " + kind):
+                n = sum(len(b[0]) for b in loader)
+        finally:
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
+        total = sw.totals["jpeg loader " + kind]
+        ms = {st: sw.totals["jpeg loader %s %s" % (kind, st)] / n * 1e3
+              for st, _, _ in stages}
+        ms["other"] = total / n * 1e3 - sum(ms.values())
+        return {"images_per_s": n / total, "images": n,
+                "ms_per_item": total / n * 1e3, "stage_ms_per_item": ms}
+
+    # both sets were just written: warm reads
+    loaders = {kind: loader_pass(kind, d)
+               for kind, d in (("jpeg", jdir), ("png", data_dir))}
+    print("  coco train loader (crop 384, scale 2, batch 16, no step) on the "
+          "50 val images, %d images a pass, warm reads, host:" %
+          loaders["jpeg"]["images"], flush=True)
+    for kind, lr in loaders.items():
+        print("    from %s: %.2f images/s, %.2f ms per item: %s" % (
+            kind.upper(), lr["images_per_s"], lr["ms_per_item"], ", ".join(
+                "%s %.2f" % kv for kv in sorted(
+                    lr["stage_ms_per_item"].items(),
+                    key=lambda kv: -kv[1]))), flush=True)
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        raise AssertionError("jpeg gates failed: %s" % failed)
+    return {"files": len(blobs), "differ": wrong,
+            "build_s": build_s,
+            "decode_ms_per_512x1024": ms_img, "decode_mb_per_s": mb_s,
+            "ap": ap, "jax_ap": jref, "png_jax_ap": png,
+            "ap_minus_png": [ap[0] - png[0], ap[1] - png[1]],
+            "overflow": r["overflow"], "times_s": r["times_s"],
+            "launches": launches,
+            "reads_equal_digests": reads_equal, "loader": loaders,
+            "phase_s": sum(sw.totals[k] for k in (
+                "jpeg build", "jpeg (c) hier", "jpeg loader jpeg",
+                "jpeg loader png"))}
 
 
 def converter_phase(drive, smi, sw, data_dir):
@@ -2699,6 +2888,10 @@ def main():
           "seed 100, 60 + 50 images of 512x1024)")
     data, data_dir = data_phase(smi, sw)
     print("data " + json.dumps({"card": smi, **data}), flush=True)
+    phase("jpeg: the committed JPEGs against cv2's digests, (c) hier from "
+          "the q90 JPEGs of the 50 val images, the coco loader on JPEG/PNG")
+    jpeg_r = jpeg_phase(drive, paths, smi, sw, data_dir)
+    print("jpeg " + json.dumps({"card": smi, **jpeg_r}), flush=True)
     phase("converter: a gtFine tree of the 50 val images -> the "
           "prepare_data.sh twin -> masks and hier AP on the converted json")
     converter = converter_phase(drive, smi, sw, data_dir)
@@ -2780,7 +2973,7 @@ def main():
                "train": train, "zoo": zoo, "class_inference": cls_inf,
                "staged": staged, "train_aux": train_aux, "data": data,
                "certification_c": cert_c, "certification_d": cert_d,
-               "recipes": recipes, "converter": converter,
+               "recipes": recipes, "converter": converter, "jpeg": jpeg_r,
                "launches_by_path": paths,
                "total_s": time.perf_counter() - T0}
     print("summary " + json.dumps(summary), flush=True)

@@ -2,7 +2,7 @@
 API, RLE masks and mask-AP, the datasets and loaders, the compact
 training pipeline (`pipeline.py`, the counterpart of the reference's
 grain pipeline), the synthetic generator and cv2's image operations in
-numpy (`imgproc.py`)."""
+numpy (`imgproc.py`) and its JPEG decoder (`jpeg.py`)."""
 
 from .dataset import (AllDataset, OffsetDataset, ClassDataset, COCOTestset,
                       DataLoader)

@@ -5,7 +5,7 @@ The reference's loaders call cv2 (`mergenet_tpu/data/dataset.py:75-80,
 `rle.py:163-171`); the GPU machine has no cv2, PIL or grain.  Each
 function here reproduces what cv2 computes, not an approximation of it:
 
-    imread_rgb(path)             cv2.imread(path) + BGR -> RGB: PNG only
+    imread_rgb(path)             cv2.imread(path) + BGR -> RGB: PNG, JPEG
     resize(img, (w, h), interpolation)
                                  cv2.resize, INTER_LINEAR (uint8, float32)
                                  and INTER_NEAREST (any dtype)
@@ -46,6 +46,7 @@ function here reproduces what cv2 computes, not an approximation of it:
 import numpy as np
 
 from .. import io
+from . import jpeg
 
 INTER_NEAREST = 0
 INTER_LINEAR = 1
@@ -57,20 +58,20 @@ _XY_SHIFT = 16
 
 def imread_rgb(path):
     """(H, W, 3) uint8 RGB of an image file, as `cv2.imread(path)` then
-    `cv2.cvtColor(img, cv2.COLOR_BGR2RGB)` give it: PNG of any colour
-    type (grey and palette images are expanded, alpha is dropped,
-    16-bit samples keep their high byte).  Other formats raise
-    ValueError naming them: there is no JPEG decoder in torch, numpy or
-    the standard library."""
+    `cv2.cvtColor(img, cv2.COLOR_BGR2RGB)` give it.  PNG of any colour
+    type: grey and palette images are expanded, alpha is dropped, 16-bit
+    samples keep their high byte.  JPEG (`jpeg.decode_jpeg`): baseline,
+    extended-sequential and progressive Huffman, grey or 3 components,
+    EXIF orientation applied.  Other formats, and the JPEG processes the
+    decoder does not take (arithmetic, lossless, 12-bit, CMYK), raise
+    ValueError naming them."""
     with open(path, "rb") as f:
         head = f.read(8)
     if head[:3] == b"\xff\xd8\xff":
-        raise ValueError("%s is a JPEG file: the port reads PNG only (no "
-                         "JPEG decoder in torch, numpy or the standard "
-                         "library)" % path)
+        with open(path, "rb") as f:
+            return jpeg.decode_jpeg(f.read(), path)
     if head != b"\x89PNG\r\n\x1a\n":
-        raise ValueError("%s is not a PNG file: the port reads PNG only"
-                         % path)
+        raise ValueError("%s is neither a PNG nor a JPEG file" % path)
     return io.read_png_rgb(path)
 
 

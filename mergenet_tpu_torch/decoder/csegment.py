@@ -15,15 +15,12 @@ Public surface (signature parity with the reference):
 """
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 
 import numpy as np
 
-from ..ops._build import BUILD_DIR
+from .. import _host_build
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
                     "segment.cc")
@@ -33,33 +30,13 @@ _lib = None
 
 
 def library_path():
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
-    return os.path.join(BUILD_DIR, "libmergenet_segment_%s.so"
-                        % h.hexdigest()[:16])
+    return _host_build.library_path(_SRC, CXX_FLAGS)
 
 
 def build():
     """Compile native/segment.cc unless the library for the current
     source exists.  Returns its path."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = ["g++", *CXX_FLAGS, _SRC, "-o", tmp]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("g++ failed (%d): %s\n%s" % (
-                proc.returncode, " ".join(cmd), proc.stderr[-4000:]))
-        os.replace(tmp, out)  # atomic: concurrent builders never see half
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    return _host_build.build(_SRC, CXX_FLAGS)
 
 
 def _load():

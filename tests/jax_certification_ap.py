@@ -4,6 +4,7 @@ card's decodes to:
 
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py     # (a), (b): ~5 min
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c   # (c): ~17 min
+    JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c_jpeg  # ~3 min
 
 Decodes each fixture with `decode_hierarchical` + `relabel_mask` (hier)
 and `run_segmentation_device`'s default exact mode at the served
@@ -25,8 +26,13 @@ that script's `mask_to_results` and `coco_ap` (the JAX package's
 COCOeval) over every val image; the maps of val images 0-7 are also
 held against the committed `probs_<i>.npz` (largest and mean absolute
 difference, share of pixels whose class argmax differs).  `--data DIR`
-keeps the regenerated images (default: a temporary directory).  Prints
-the dict that `JAX_AP` holds."""
+keeps the regenerated images (default: a temporary directory).
+
+Procedure "c_jpeg" is (c) with the hier decode only, on the committed
+JPEG encodings of the same 50 images (`tests/fixtures/jpeg/val/`,
+quality 90, 4:2:0, written by `tests/make_jpeg_fixtures.py`), read with
+`cv2.imread` as the JAX package reads images.  Prints the dict that
+`JAX_AP` holds."""
 
 import argparse
 import contextlib
@@ -43,6 +49,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIX = os.path.join(REPO, "tests", "fixtures", "certification512")
+JPEG_VAL = os.path.join(REPO, "tests", "fixtures", "jpeg", "val")
 SERVE_KW = dict(object_merge_factor=1.0, merge_logprob_bias=0.03)
 
 
@@ -92,11 +99,12 @@ def _script(name, path):
     return mod
 
 
-def procedure_c(data_dir):
+def procedure_c(data_dir, decoders=("hier", "exact"), image_dir=None):
     """{"hier": (AP, AP50), "exact": (AP, AP50), "overflow": {...},
     "times_s": {...}}: the JAX package on the 50 val images regenerated
     by the reference generator, scored as the certification script
-    scores them."""
+    scores them.  `image_dir` reads each image from there instead, under
+    its name with `.jpg` (procedure "c_jpeg")."""
     import jax
     import jax.numpy as jnp
     import cv2
@@ -133,20 +141,23 @@ def procedure_c(data_dir):
 
     with contextlib.redirect_stdout(io.StringIO()):
         coco = COCO(val_ann)
-    res = {"hier": [], "exact": []}
-    times = {"net": 0.0, "hier": 0.0, "exact": 0.0}
+    res = {k: [] for k in decoders}
+    times = {k: 0.0 for k in ("net",) + tuple(decoders)}
     overflow = {"edges_dropped": 0, "pairs_dropped": 0, "n_frozen": 0}
     fixture_probs = []
     for n, img_id in enumerate(sorted(coco.imgs)):
         fname = coco.loadImgs(img_id)[0]["file_name"]
-        img = cv2.cvtColor(cv2.imread(os.path.join(data_dir, "val", fname)),
-                           cv2.COLOR_BGR2RGB)
+        path = os.path.join(data_dir, "val", fname)
+        if image_dir is not None:
+            path = os.path.join(image_dir, os.path.splitext(fname)[0]
+                                + ".jpg")
+        img = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
         t0 = time.time()
         probs = np.asarray(probs_fn(params, batch_stats, jnp.asarray(
             img.astype(np.float32)[None] / 256.0)))[0]
         times["net"] += time.time() - t0
         cp, sp = probs[..., :C], probs[..., C:]
-        if n < 8:  # against the committed fixture maps (float16, a TPU's)
+        if n < 8 and image_dir is None:  # the committed fixture maps
             fcp, fsp = (np.load(os.path.join(FIX, "probs_%d.npz" % n))[k]
                         .astype(np.float32) for k in ("cp", "sp"))
             d = np.abs(probs - np.concatenate([fcp, fsp], -1))
@@ -154,26 +165,29 @@ def procedure_c(data_dir):
                 "max_abs": float(d.max()), "mean_abs": float(d.mean()),
                 "argmax_differ": float((cp.argmax(-1)
                                         != fcp.argmax(-1)).mean())})
-        t0 = time.time()
-        comp, rc, ii, st = decode_hierarchical(
-            jnp.asarray(cp), jnp.asarray(sp), C, offsets, return_stats=True,
-            **SERVE_KW)
-        mask, ic = relabel_mask(comp, rc, ii)
-        mask = np.asarray(mask)
-        times["hier"] += time.time() - t0
-        for k in overflow:
-            overflow[k] += int(st[k])
-        res["hier"] += cert.mask_to_results(
-            mask, [int(c) for c in np.asarray(ic) if c >= 0], img_id)
-        t0 = time.time()
-        emask, ecls = run_segmentation_device(
-            np.moveaxis(cp, -1, 0), np.moveaxis(sp, -1, 0), C, offsets,
-            **SERVE_KW)
-        times["exact"] += time.time() - t0
-        res["exact"] += cert.mask_to_results(emask, ecls, img_id)
-        print("  (c) image %d/%d: net %.1f s, hier %.1f s, exact %.1f s so far"
-              % (n + 1, len(coco.imgs), times["net"], times["hier"],
-                 times["exact"]), file=sys.stderr, flush=True)
+        if "hier" in decoders:
+            t0 = time.time()
+            comp, rc, ii, st = decode_hierarchical(
+                jnp.asarray(cp), jnp.asarray(sp), C, offsets,
+                return_stats=True, **SERVE_KW)
+            mask, ic = relabel_mask(comp, rc, ii)
+            mask = np.asarray(mask)
+            times["hier"] += time.time() - t0
+            for k in overflow:
+                overflow[k] += int(st[k])
+            res["hier"] += cert.mask_to_results(
+                mask, [int(c) for c in np.asarray(ic) if c >= 0], img_id)
+        if "exact" in decoders:
+            t0 = time.time()
+            emask, ecls = run_segmentation_device(
+                np.moveaxis(cp, -1, 0), np.moveaxis(sp, -1, 0), C, offsets,
+                **SERVE_KW)
+            times["exact"] += time.time() - t0
+            res["exact"] += cert.mask_to_results(emask, ecls, img_id)
+        print("  (c) image %d/%d: %s so far" % (
+            n + 1, len(coco.imgs), ", ".join("%s %.1f s" % kv
+                                             for kv in times.items())),
+            file=sys.stderr, flush=True)
     out = {k: cert.coco_ap(coco, r) for k, r in res.items()}
     out["overflow"] = overflow
     out["times_s"] = times
@@ -184,7 +198,7 @@ def procedure_c(data_dir):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("procedures", nargs="*", default=["a", "b"],
-                    choices=["a", "b", "c"])
+                    choices=["a", "b", "c", "c_jpeg"])
     ap.add_argument("--data", default=None,
                     help="directory for procedure (c)'s regenerated images")
     args = ap.parse_args()
@@ -208,12 +222,16 @@ def main():
         if "a" in args.procedures:
             out["a01"] = {"hier": jax_ap(coco,
                                          res["hier"][0] + res["hier"][1])}
-    if "c" in args.procedures:
+    for proc in ("c", "c_jpeg"):
+        if proc not in args.procedures:
+            continue
+        kw = {} if proc == "c" else dict(decoders=("hier",),
+                                         image_dir=JPEG_VAL)
         if args.data:
-            out["c"] = procedure_c(args.data)
+            out[proc] = procedure_c(args.data, **kw)
         else:
             with tempfile.TemporaryDirectory() as tmp:
-                out["c"] = procedure_c(tmp)
+                out[proc] = procedure_c(tmp, **kw)
     print(json.dumps(out, indent=1))
     return 0
 

@@ -295,8 +295,15 @@ def test_read_png_colour_types_equal_cv2(tmp_path):
 
 
 def test_imread_refuses_jpeg_and_interlaced_png(tmp_path):
+    """A JPEG the decoder takes reads as cv2 reads it (the JPEG cases are
+    in test_torch_port_jpeg.py); one it does not take (arithmetic coding)
+    and an interlaced PNG are refused."""
     jpg = str(tmp_path / "a.jpg")
-    cv2.imwrite(jpg, np.zeros((8, 8, 3), np.uint8))
+    cv2.imwrite(jpg, np.arange(8 * 8 * 3, dtype=np.uint8).reshape(8, 8, 3))
+    np.testing.assert_array_equal(imgproc.imread_rgb(jpg), _cv2_rgb(jpg))
+    data = bytearray(open(jpg, "rb").read())
+    data[data.index(b"\xff\xc0") + 1] = 0xC9  # SOF9: arithmetic coding
+    open(jpg, "wb").write(bytes(data))
     with pytest.raises(ValueError, match="JPEG"):
         imgproc.imread_rgb(jpg)
     png = str(tmp_path / "i.png")

@@ -1,9 +1,10 @@
 """The port runs where the GPU machine has no jax, flax, cv2, PIL or
 grain, and never imports the JAX package: every module of
 `mergenet_tpu_torch` and `chip_smoke.py` import, and a small decode, a
-forward, the data slice (generate, read, resize, fill a polygon, load a
-batch) and the Cityscapes converter run, in a subprocess where those
-modules are blocked."""
+forward, the data slice (generate, read a PNG and a JPEG, resize, fill a
+polygon, load a batch) and the Cityscapes converter run, in a subprocess
+where those modules are blocked.  The JPEG decoder is the port's own
+source: it includes no libjpeg header and links no libjpeg."""
 
 import os
 import pathlib
@@ -45,11 +46,14 @@ SCRIPT = textwrap.dedent("""
               "egs.cityscape.convert_caffe_to_pytorch", "egs.coco.train",
               "egs.coco.segment", "egs.coco.evaluate", "data.contours",
               "egs.cityscape.convert_cityscapes_to_coco",
-              "egs.cityscape.cityscapes_labels"):
+              "egs.cityscape.cityscapes_labels", "data.jpeg",
+              "_host_build"):
         assert "mergenet_tpu_torch." + m in mods, m
     from mergenet_tpu_torch.decoder import csegment
     from mergenet_tpu_torch.e2e import masks_to_results
     assert csegment._lib is None  # nothing is built at import
+    from mergenet_tpu_torch.data import jpeg
+    assert jpeg._lib is None
     masks_to_results(np.ones((1, 4, 4), np.int32), np.ones((1, 1), np.int32),
                      [0], [0, 1])
     import chip_smoke
@@ -84,6 +88,8 @@ SCRIPT = textwrap.dedent("""
         next(iter(make_train_pipeline(os.path.join(d, "train"), ann, 2,
                                       16)[0]))
     imgproc.resize(np.zeros((9, 9), np.float32), (4, 5))
+    assert imgproc.imread_rgb("tests/fixtures/jpeg/matrix/s420.jpg").shape \
+        == (512, 1024, 3)
     imgproc.resize(np.zeros((8, 8, 9), np.float32), (4, 4))
     from mergenet_tpu_torch.utils.visualization import visualize_mask
     visualize_mask(np.zeros((20, 30, 3), np.uint8),
@@ -153,3 +159,17 @@ def test_port_shell_drivers_call_only_the_port():
             assert not re.search(r"\bpython3?\b(?!\s+-m\b)", line), (f, line)
         if f.name != "parse_options.sh" and f != links_only:
             assert "mergenet_tpu_torch.egs." in "\n".join(code), f
+
+
+def test_jpeg_decoder_uses_no_libjpeg():
+    from mergenet_tpu_torch.data import jpeg
+    src = pathlib.Path(jpeg.SRC).read_text()
+    includes = re.findall(r"^\s*#\s*include\s*[<\"]([^>\"]+)", src, re.M)
+    assert includes and all("/" not in h and "jpeg" not in h.lower()
+                            for h in includes), includes
+    assert not any(f.startswith("-l") or "jpeg" in f
+                   for f in jpeg.CXX_FLAGS), jpeg.CXX_FLAGS
+    lib = jpeg.build()
+    needed = subprocess.run(["ldd", lib], capture_output=True, text=True)
+    assert needed.returncode == 0 and "libstdc++" in needed.stdout
+    assert "jpeg" not in needed.stdout, needed.stdout

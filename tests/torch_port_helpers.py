@@ -105,7 +105,9 @@ def cuda_device():
 #: images only; "a01" is hier over fixtures 0 and 1 under (a); "c" is
 #: procedure (c): the committed bench_ckpt.npz's net on the 50 val
 #: images regenerated by the reference generator, hier and exact decodes
-#: of its float32 maps, every val image scored (zero overflow)
+#: of its float32 maps, every val image scored (zero overflow); "c_jpeg"
+#: is (c)'s hier decode on the committed JPEGs of those images
+#: (tests/fixtures/jpeg/val/, quality 90, 4:2:0) read with cv2.imread
 JAX_AP = {"a": {"hier": (0.09725247524752474, 0.11262376237623763),
                 "exact": (0.09628712871287129, 0.11633663366336634),
                 "cpp": (0.0927062706270627, 0.11633663366336634)},
@@ -114,7 +116,8 @@ JAX_AP = {"a": {"hier": (0.09725247524752474, 0.11262376237623763),
                 "cpp": (0.7088778877887789, 0.8985148514851485)},
           "a01": {"hier": (0.02524752475247525, 0.028465346534653466)},
           "c": {"hier": (0.6920563049981829, 0.8145283278327833),
-                "exact": (0.6562437697688676, 0.8091715064363579)}}
+                "exact": (0.6562437697688676, 0.8091715064363579)},
+          "c_jpeg": {"hier": (0.6876531846190053, 0.8105060506050605)}}
 
 
 def coco_stats(coco, results, img_ids=None, cocoeval=None):
