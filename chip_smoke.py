@@ -21,7 +21,8 @@ after:
 - the certification: hier and exact decodes of the 8 certification512
   fixtures on the card (floodscan, absorb, tgather), scored with the
   port's COCOeval and gated against the committed C++ greedy masks, and
-  the port's C++ greedy decoder (`decoder/csegment.py`) on fixture 0;
+  the port's C++ greedy decoder (`decoder/csegment.py`) on fixture 0,
+  in a host thread beside the card's decodes;
 - the serving pipeline with its overflow fallback
   (`serving.build_serving_pipeline`) on a batch of two served frames;
 - the gather bench (`python -m mergenet_tpu_torch.bench_pallas_gather`;
@@ -38,7 +39,7 @@ after:
 - class inference: PSPNet-r101 from a synthetic caffemodel with the
   released naming (`caffemodel_to_npz`, `apply_caffe_weights`, every
   tensor bit-equal), `class_inference` with `tile_predict` (713x713
-  windows with flips, 19 classes remapped to 9) over the 4 bench images
+  windows with flips, 19 classes remapped to 9) over 2 bench images
   at 1024x2048, the saved maps read back and gated;
 - the staged inference: `class_inference` and `offset_inference` of
   PSPFPNet-r50, the saved maps decoded by
@@ -60,9 +61,10 @@ after:
   card (floodscan, absorb, tgather) scored against the original and the
   converted json;
 - certification (c): the committed bench_ckpt.npz as a float32 net on
-  the 50 regenerated val images, hier and exact decodes on the card
-  (`certify.score`; floodscan, absorb, tgather), mask-AP against the
-  JAX package's;
+  the 50 regenerated val images, hier decodes on the card and exact
+  decodes of images 0-7 (`certify.score`; floodscan, absorb, tgather),
+  hier mask-AP against the JAX package's, the exact masks against the
+  JAX package's exact masks of those images;
 - certification (d): seed 0 trained on the regenerated data through the
   port's loader (`data/pipeline.py`, `certify.train_seed`), 24 epochs,
   then scored with hier decodes;
@@ -74,15 +76,28 @@ after:
   `infer_e2e`, and the train recipe plainly and under `torchrun`
   (NCCL, the data-parallel mesh at world size 1); then data-parallel
   serving at world size 1 against the plain serve;
+- the spatial mesh axis (its 2 ranks start with the recipes and wait):
+  2 ranks on the one card (gloo; the halo exchange's device tensors
+  staged through host memory) height-shard PSPFPNet-r50 as the JAX
+  package's multi-chip dry run does: 2 compact steps at batch 8 of
+  256x512 in float32 (and a float64 twin) against the one-process
+  steps, the 1024x2048 frame's forward sharded and its logits decoded
+  (floodscan, absorb) against the unsharded frame's decode, and
+  serving on the (1, 2, 1) mesh against plain serving;
 - PSPNet-r101's aux head in compact train steps (batch 16, 768x768,
   aux_weight 0.4, bf16), after one step held against the CPU's with
   the same dropout masks.
+
+`python3 chip_smoke.py --cards` runs the card and build phases and the
+spatial phase alone over NCCL, one rank per card of a machine with an
+even number of cards (2 or more): the steps and serving on
+(cards/2, 2, 1), the dry run's layout, the frame on (1, cards, 1).
 
 Every check raises; the exit code is 0 only when all phases pass.
 Prints one line per phase, `train {...}`, `zoo {...}`,
 `class_inference {...}`, `staged {...}`, `data {...}`, `jpeg {...}`,
 `converter {...}`, `certification_c {...}`, `certification_d {...}`,
-`recipes {...}` and `train_aux {...}` lines
+`recipes {...}`, `spatial {...}` and `train_aux {...}` lines
 (times, throughput, peak memory, FLOPs, shares of the bf16 peak), the
 new phases' spans (`utils/profiling.Stopwatch`), the summary, then the
 card, the kernels line, and last `{"ok": true, "device": {...}}`.
@@ -94,8 +109,8 @@ converter phase), pytest (through those helpers) and the standard
 library besides the port.  Writes nothing outside
 mergenet_tpu_torch/_build/ (the train phase's checkpoints, the synthetic
 caffemodel, the inference phases' maps, the regenerated dataset, the
-converter's tree and json, the trained seed and the recipes'
-experiments go there).
+converter's tree and json, the trained seed, the recipes'
+experiments and the spatial ranks' files go there).
 """
 
 import json
@@ -223,7 +238,10 @@ S2D_MAX_REL = 1e-4
 # 19 classes, 713x713 windows, flips, caffe-style mean-subtracted BGR
 # input; the reference's remap of 11 stuff + 8 thing classes to 9), from
 # a synthetic caffemodel with the released naming and every tensor at
-# full size, on the 4 bench images upscaled to 1024x2048
+# full size, on the first CLASS_FRAMES bench images upscaled to
+# 1024x2048 (2 of the 4: the run's 600 s guard on a slow
+# host; the gates hold each frame's maps)
+CLASS_FRAMES = 2
 CLASS_WINDOW = (713, 713)
 CLASS_MODEL_CLASSES, CLASS_INSTANCE_CLASSES = 19, 9
 CLASS_SUM_TOL = 1e-5
@@ -253,6 +271,21 @@ CERT_PROBS_MAX_ABS = 0.1
 CERT_PROBS_ARGMAX_DIFFER = 0.002
 # the reference's summary.json, seed 0 (the float32 net): a reading
 CERT_SUMMARY_SEED0 = {"hier": (0.6895, 0.8145), "exact": (0.6489, 0.8092)}
+# (c)'s exact decodes on val images 0-7 only (1.4 s each): the run's
+# 600 s guard (ROADMAP.md's second cut); their masks held to the JAX
+# package's exact masks of the same images (c_exact_<i>.npz,
+# `tests/jax_certification_ap.py c_exact_0_7 --save-exact`): each
+# image's instance count within MAX_INSTANCE_DIFF, and the pixel
+# agreement (up to renaming) over the 8 images at least
+# CERT_C_EXACT_AGREEMENT.  The two sides decode maps of two float32
+# forwards, and the exact decoder moves boundary pixels on their
+# last-bit differences: the port's CPU decodes read 0.997561 (worst
+# image 0.991638), planted faults 0.779409 (offsets reversed), 0.992338
+# (merge_logprob_bias 0) and 0.993905 (object_merge_factor 0.8)
+# (`tests/torch_port_exact_readings.py`, PERF.md).  Their AP over the 8
+# images is a reading: one instance moves it by ~0.004
+CERT_C_EXACT_IMAGES = 8
+CERT_C_EXACT_AGREEMENT = 0.996
 # (d): the reference's 24 epochs, batch 8, 384^2 crops, lr 0.02; its
 # three seeds' lowest hier AP (0.6693) less their spread (0.6919 - 0.6693)
 CERT_D_EPOCHS = 24
@@ -264,6 +297,10 @@ RECIPE_CROP = 384
 RECIPE_BATCH = 8
 RECIPE_TRAIN_ARGS = ["--limits", "16", "--val-limits", "8", "--epochs", "1"]
 RECIPE_LOSS_RTOL = 1e-3
+# the jobs beside the staged chain (the train recipes, infer_e2e, the
+# 2x-shrink segments) run at this niceness, so the chain, the phase's
+# critical path, takes the host's cores first
+RECIPE_BESIDE_NICE = 10
 RECIPE_HEAD_TOL = 1e-5
 RECIPE_TIMEOUT_S = 300
 RECIPE_HALF_IMAGES = 4  # segment at the recipe's 2x shrink, card vs CPU
@@ -272,6 +309,28 @@ RECIPE_HALF_IMAGES = 4  # segment at the recipe's 2x shrink, card vs CPU
 # the converter maps back to category ids 1-8
 CONVERTER_LABEL_IDS = (24, 25, 26, 27, 28, 31, 32, 33)
 CONVERTER_TIMEOUT_S = 300
+
+# spatial phase: the JAX package's multi-chip dry run
+# (__graft_entry__.py:108-160 dryrun_multichip: PSPFPNet-r50, 256x512
+# crops, global batch 8, spatial=2) as 2 ranks on the one card over gloo
+# (NCCL refuses two ranks on one device), float32 with TF32 off, against
+# the one-process step on the same batch and weights; then the served
+# frame's forward height-sharded over the ranks and decoded (floodscan,
+# absorb), and serving on the (1, 2, 1) mesh
+SPATIAL_RANKS = 2
+SPATIAL_BATCH, SPATIAL_CROP, SPATIAL_STEPS = 8, (256, 512), 2
+# gates of (i): float32 losses of both steps within 1e-3 relative, the
+# running statistics of the first step within 1e-3 (+ 1e-3 relative, the
+# train phase's rule); after the second step float32 lies further from
+# float64 than that in the one-process step itself (the first step's
+# update of a ResNet-50 moves with the summation order: PERF.md), so the
+# float64 twin of both steps is held to 1e-9
+SPATIAL_LOSS_RTOL = 1e-3
+SPATIAL_STATS_TOL = 1e-3
+SPATIAL_F64_TOL = 1e-9
+SPATIAL_FRAME, SPATIAL_DECODE = (1024, 2048), (512, 1024)
+SPATIAL_TIMEOUT_S = 150
+SPATIAL_MAX_S = 60  # the phase's budget within the run
 
 
 def phase(name):
@@ -353,8 +412,11 @@ def certify(drive):
     fixtures on the card with the launches counted, both scored with the
     port's COCOeval under procedure (a), every image of val_ann.json, and
     (b), the 8 fixture images only, and gated against the committed C++
-    greedy masks and the JAX package's figures; then the port's C++
-    greedy on fixture 0 on the host."""
+    greedy masks and the JAX package's figures; the port's C++ greedy on
+    fixture 0 runs on the host meanwhile, in a thread (its ctypes call
+    releases the GIL), and is joined and gated last."""
+    import threading
+
     import numpy as np
     import torch
     from mergenet_tpu_torch import certify as CT
@@ -390,6 +452,27 @@ def certify(drive):
                 res["cpp"] += masks_to_results(cm["mask"][None],
                                                cm["classes"][None], [i], cats)
 
+    greedy = {}
+
+    def cpp_greedy():
+        try:
+            t0 = time.perf_counter()
+            stale = csegment.library_path()
+            if os.path.exists(stale):  # measure the real build every run
+                os.unlink(stale)
+            csegment.build()
+            greedy["build_s"] = time.perf_counter() - t0
+            cp, sp = io.load_probs(FIX, 0)
+            t0 = time.perf_counter()
+            greedy["mask"], greedy["classes"] = csegment.run_segmentation(
+                np.moveaxis(cp, -1, 0), np.moveaxis(sp, -1, 0), C, offsets,
+                same_different_bias=0.0, **SERVE_KW)
+            greedy["decode_s"] = time.perf_counter() - t0
+        except BaseException as e:  # re-raised after the join
+            greedy["error"] = e
+
+    host = threading.Thread(target=cpp_greedy, daemon=True)
+    host.start()
     t0 = time.perf_counter()
     drive("certification", decode_all, ("floodscan", "absorb", "tgather"))
     decode_s = time.perf_counter() - t0
@@ -428,23 +511,17 @@ def certify(drive):
     if failed:
         raise AssertionError("certification gates failed: %s" % failed)
 
-    t0 = time.perf_counter()
-    stale = csegment.library_path()
-    if os.path.exists(stale):  # measure the real build every run
-        os.unlink(stale)
-    csegment.build()
-    build_s = time.perf_counter() - t0
-    cp, sp = io.load_probs(FIX, 0)
-    t0 = time.perf_counter()
-    cm_mask, cm_cls = csegment.run_segmentation(
-        np.moveaxis(cp, -1, 0), np.moveaxis(sp, -1, 0), C, offsets,
-        same_different_bias=0.0, **SERVE_KW)
-    cpp_s = time.perf_counter() - t0
+    host.join()
+    if "error" in greedy:
+        raise greedy["error"]
+    build_s, cpp_s = greedy["build_s"], greedy["decode_s"]
+    cm_mask, cm_cls = greedy["mask"], greedy["classes"]
     with np.load(os.path.join(FIX, "cpp_mask_0.npz")) as cm:
         ref_mask = cm["mask"]
     differ = int((cm_mask != ref_mask).sum())
     print("  C++ greedy (decoder/csegment.py) on fixture 0 (512x1024): g++ "
-          "build %.2f s, decode %.2f s on the host; classes %s; %d of %d "
+          "build %.2f s, decode %.2f s on the host (a thread beside the "
+          "card's decodes); classes %s; %d of %d "
           "pixels differ from cpp_mask_0.npz (limit %.0f%%)" % (
               build_s, cpp_s, cm_cls, differ, ref_mask.size,
               100 * CPP_MAX_DIFFER), flush=True)
@@ -474,14 +551,14 @@ def upscale2(a):
     return np.repeat(np.repeat(a, 2, 0), 2, 1)
 
 
-def train_data(rng):
+def train_data(rng, n=TRAIN_BATCH, size=(TRAIN_CROP, TRAIN_CROP)):
     """The train phase's compact batch: the 4 committed val images
     (`bench_images`, the first four sorted val ids, as
     scripts/export_bench_checkpoint.py took them) and their instance
     masks from val_ann.json (first annotation wins, ids in annotation
     order, classes through [0] + category ids), each upscaled x2
-    (nearest) to 1024x2048; TRAIN_BATCH crops of TRAIN_CROP^2 at
-    positions drawn from `rng`, frame i % 4 for crop i."""
+    (nearest) to 1024x2048; `n` crops of `size` (h, w) at positions
+    drawn from `rng`, frame i % 4 for crop i."""
     import numpy as np
     from mergenet_tpu_torch.data import COCO
 
@@ -504,14 +581,14 @@ def train_data(rng):
             mask[m & (mask == 0)] = i
             table[i] = cat_ids.index(ann["category_id"])
         frames.append((upscale2(img), upscale2(mask), table))
-    S = TRAIN_CROP
+    h, w = size
     batch = {"image": [], "mask": [], "object_class": []}
-    for i in range(TRAIN_BATCH):
+    for i in range(n):
         img, mask, table = frames[i % 4]
-        r = int(rng.integers(0, img.shape[0] - S + 1))
-        c = int(rng.integers(0, img.shape[1] - S + 1))
-        batch["image"].append(img[r:r + S, c:c + S])
-        batch["mask"].append(mask[r:r + S, c:c + S])
+        r = int(rng.integers(0, img.shape[0] - h + 1))
+        c = int(rng.integers(0, img.shape[1] - w + 1))
+        batch["image"].append(img[r:r + h, c:c + w])
+        batch["mask"].append(mask[r:r + h, c:c + w])
         batch["object_class"].append(table)
     return {k: np.stack(v) for k, v in batch.items()}, \
         [len(coco.getAnnIds(imgIds=i)) for i in ids]
@@ -914,7 +991,7 @@ def class_inference_phase(drive, smi, sw):
     _build/, converted (`caffemodel_to_npz`) and loaded
     (`apply_caffe_weights`) into a fresh model, every tensor bit-equal;
     then `class_inference` with `tile_predict` (713^2 windows, flips, 19
-    classes remapped to 9) over the 4 bench images upscaled to
+    classes remapped to 9) over CLASS_FRAMES bench images upscaled to
     1024x2048, in bf16 and float32 (TF32 off); the saved maps read back
     and gated.  No decode kernel may launch."""
     import shutil
@@ -981,7 +1058,7 @@ def class_inference_phase(drive, smi, sw):
         mean = np.asarray(CAFFE_MEAN_RGB, np.float32)
         loader = [(np.array([i]), (upscale2(img).astype(np.float32)
                                    - mean)[None, :, :, ::-1].copy())
-                  for i, img in enumerate(bench_images())]
+                  for i, img in enumerate(bench_images()[:CLASS_FRAMES])]
         tx = T.make_optimizer()
         runs = {}
 
@@ -1768,9 +1845,14 @@ def converter_phase(drive, smi, sw, data_dir):
 def cert_c_phase(drive, smi, sw, data_dir):
     """Procedure (c): the committed bench_ckpt.npz (float16 parameters
     widened) as a float32 net (TF32 off) on the 50 regenerated val
-    images, hier and exact decodes on the card, scored with the port's
-    COCOeval; gates: the maps of images 0-7 against the committed
-    fixtures, zero overflow, each AP within CERT_JAX_AP_TOL of JAX's."""
+    images, hier decodes on the card and exact decodes of images 0-7
+    (the run's budget: ROADMAP.md), scored with the port's COCOeval;
+    gates: the maps of images 0-7 against the committed fixtures, zero
+    overflow, hier AP within CERT_JAX_AP_TOL of JAX's over the 50, and
+    the exact masks of images 0-7 against the JAX package's exact masks
+    of those images (c_exact_<i>.npz; CERT_C_EXACT_AGREEMENT above); the
+    exact AP over them beside JAX's (`JAX_AP["c_exact_0_7"]`) is a
+    reading."""
     import numpy as np
 
     from mergenet_tpu_torch import certify as CT
@@ -1791,11 +1873,16 @@ def cert_c_phase(drive, smi, sw, data_dir):
                           "argmax_differ": float(
                               (cp.argmax(-1) != fcp.argmax(-1)).mean())})
 
+    exact = {}
+
+    def on_exact(n, img_id, mask, classes):
+        exact[n] = np.asarray(mask)
+
     with sw.span("certification (c)"):
         r = drive("certification (c)", lambda: CT.score(
             net, data_dir, 9, offsets, ("hier", "exact"),
-            on_probs=on_probs),
-            ("floodscan", "absorb", "tgather"))
+            on_probs=on_probs, exact_images=CERT_C_EXACT_IMAGES,
+            on_exact=on_exact), ("floodscan", "absorb", "tgather"))
     del net
     worst = {k: max(d[k] for d in diffs) for k in diffs[0]}
     print("  net maps on val images 0-7 vs the committed probs_<i>.npz: "
@@ -1803,15 +1890,39 @@ def cert_c_phase(drive, smi, sw, data_dir):
           "(limit %.4f)" % (worst["max_abs"], CERT_PROBS_MAX_ABS,
                             worst["mean_abs"], worst["argmax_differ"],
                             CERT_PROBS_ARGMAX_DIFFER), flush=True)
-    for name in ("hier", "exact"):
-        jref, ref = JAX_AP["c"][name], CERT_SUMMARY_SEED0[name]
-        print("  (c) %-5s AP %.4f AP50 %.4f | JAX (CPU) AP %.4f AP50 %.4f | "
-              "summary.json seed 0 AP %.4f AP50 %.4f" % (
-                  name, r[name][0], r[name][1], jref[0], jref[1], ref[0],
-                  ref[1]), flush=True)
-    print("  (c) %d images; overflow %s; net %.2f s, "
+    jref = JAX_AP["c"]["hier"]
+    print("  (c) hier  AP %.4f AP50 %.4f | JAX (CPU) AP %.4f AP50 %.4f | "
+          "summary.json seed 0 AP %.4f AP50 %.4f" % (
+              r["hier"][0], r["hier"][1], jref[0], jref[1],
+              CERT_SUMMARY_SEED0["hier"][0], CERT_SUMMARY_SEED0["hier"][1]),
+          flush=True)
+    jref = JAX_AP["c_exact_0_7"]["exact"]
+    print("  (c) exact AP %.4f AP50 %.4f over images 0-%d | JAX (CPU) AP "
+          "%.4f AP50 %.4f over them (a reading)" % (
+              r["exact"][0], r["exact"][1], CERT_C_EXACT_IMAGES - 1,
+              jref[0], jref[1]), flush=True)
+    exact_vs_jax = []
+    for i in range(CERT_C_EXACT_IMAGES):
+        with np.load(os.path.join(FIX, "c_exact_%d.npz" % i)) as z:
+            ref = z["mask"]
+        frac, same = agreement(exact[i], ref)
+        exact_vs_jax.append({"agreement": frac, "exact": same,
+                             "instances": int(exact[i].max()),
+                             "instances_jax": int(ref.max())})
+    exact_agree = sum(e["agreement"] for e in exact_vs_jax) / len(
+        exact_vs_jax)
+    counts_ok = all(abs(e["instances"] - e["instances_jax"])
+                    <= MAX_INSTANCE_DIFF for e in exact_vs_jax)
+    print("  (c) exact masks of images 0-%d against JAX's: agreement %.6f "
+          "over them (limit %.3f); per image (agreement, instances card/"
+          "JAX): %s" % (
+              CERT_C_EXACT_IMAGES - 1, exact_agree, CERT_C_EXACT_AGREEMENT,
+              ", ".join("%.6f %d/%d" % (e["agreement"], e["instances"],
+                                        e["instances_jax"])
+                        for e in exact_vs_jax)), flush=True)
+    print("  (c) %d images, %d of them exact; overflow %s; net %.2f s, "
           "hier %.2f s, exact %.2f s (%s)" % (
-              r["images"], r["overflow"],
+              r["images"], CERT_C_EXACT_IMAGES, r["overflow"],
               r["times_s"]["net"], r["times_s"]["hier"],
               r["times_s"]["exact"], smi), flush=True)
     gates = [("maps max abs", worst["max_abs"] <= CERT_PROBS_MAX_ABS),
@@ -1820,14 +1931,20 @@ def cert_c_phase(drive, smi, sw, data_dir):
              ("zero overflow", not any(r["overflow"].values())),
              ("hier AP within %.3f of JAX's" % CERT_JAX_AP_TOL,
               abs(r["hier"][0] - JAX_AP["c"]["hier"][0]) <= CERT_JAX_AP_TOL),
-             ("exact AP within %.3f of JAX's" % CERT_JAX_AP_TOL,
-              abs(r["exact"][0] - JAX_AP["c"]["exact"][0])
-              <= CERT_JAX_AP_TOL)]
+             ("exact masks' agreement with JAX's over images 0-%d"
+              % (CERT_C_EXACT_IMAGES - 1),
+              exact_agree >= CERT_C_EXACT_AGREEMENT),
+             ("exact instance counts within %d of JAX's"
+              % MAX_INSTANCE_DIFF, counts_ok)]
     failed = [g for g, ok in gates if not ok]
     if failed:
         raise AssertionError("certification (c) gates failed: %s" % failed)
     return {"ap": {k: r[k] for k in ("hier", "exact")},
-            "jax_ap": {k: JAX_AP["c"][k] for k in ("hier", "exact")},
+            "exact_vs_jax": exact_vs_jax,
+            "exact_agreement": exact_agree,
+            "exact_images": CERT_C_EXACT_IMAGES,
+            "jax_ap": {"hier": JAX_AP["c"]["hier"],
+                       "exact": JAX_AP["c_exact_0_7"]["exact"]},
             "summary_seed0": CERT_SUMMARY_SEED0, "maps_vs_fixtures": diffs,
             "overflow": r["overflow"], "times_s": r["times_s"],
             "images": r["images"],
@@ -1946,7 +2063,8 @@ def recipes_phase(drive, paths, smi, sw, data_dir):
     - the train recipe at `run_pspfpnet_crop.sh`'s arch and alpha
       (crop 384, batch 8, RECIPE_TRAIN_ARGS) plainly and under
       `torchrun --standalone --nproc_per_node 1` (NCCL, the mesh path),
-      started together with infer_e2e while the chain runs: both write
+      started together with infer_e2e while the chain runs (the jobs
+      beside the chain at niceness RECIPE_BESIDE_NICE): both write
       checkpoint and model_best, their first-step losses agree within
       RECIPE_LOSS_RTOL, the torchrun checkpoint loads back;
     - data-parallel serving at world size 1 (a FileStore NCCL group in
@@ -2054,13 +2172,13 @@ def recipes_phase(drive, paths, smi, sw, data_dir):
         val_img, "--ann", val_ann, "--seg-size", "512", "256", "--limits",
         str(RECIPE_HALF_IMAGES), "--device", dev] for dev in ("cuda", "cpu")}
 
-    def start(name, cmd, tag):
+    def start(name, cmd, tag, nice=RECIPE_BESIDE_NICE):
         logs[name] = os.path.join(work, tag + ".log")
         procs[name] = subprocess.Popen(
-            cmd, cwd=work, stdout=open(logs[name], "w"),
-            stderr=subprocess.STDOUT, env=dict(
-                env, MERGENET_LAUNCH_LOG=os.path.join(
-                    work, tag + ".launches")))
+            (["nice", "-n", str(nice)] if nice else []) + cmd, cwd=work,
+            stdout=open(logs[name], "w"), stderr=subprocess.STDOUT,
+            env=dict(env, MERGENET_LAUNCH_LOG=os.path.join(
+                work, tag + ".launches")))
         return procs[name]
 
     def chain_text():
@@ -2071,7 +2189,7 @@ def recipes_phase(drive, paths, smi, sw, data_dir):
         t0 = time.perf_counter()
         for name, cmd in background.items():
             start(name, cmd, name.replace(" ", "_"))
-        chain = start("infer_pspfpnet.sh", chain_cmd, "chain")
+        chain = start("infer_pspfpnet.sh", chain_cmd, "chain", nice=0)
         # the 2x-shrink segments start once offset_infer wrote its maps
         while chain.poll() is None and "stage 1 done" not in chain_text():
             time.sleep(0.5)
@@ -2095,8 +2213,10 @@ def recipes_phase(drive, paths, smi, sw, data_dir):
                 p.wait()
     chain_out = chain_text()
     print("  exit codes: %s; chain %.2f s; stages (ms, with training, "
-          "infer_e2e and the 2x-shrink segments running beside them): %s"
-          % (rcs, chain_s, _stage_ms(chain_out)), flush=True)
+          "infer_e2e and the 2x-shrink segments running beside them at "
+          "niceness %d): %s"
+          % (rcs, chain_s, RECIPE_BESIDE_NICE, _stage_ms(chain_out)),
+          flush=True)
     if any(rcs.values()):
         for name, path in list(logs.items()):
             with open(path) as f:
@@ -2264,6 +2384,528 @@ def recipes_phase(drive, paths, smi, sw, data_dir):
     return out
 
 
+def bench_frame(k, size=SPATIAL_FRAME):
+    """Committed val image k (bench_img*.png) resized bilinearly to
+    `size` as the frame phase resizes it: (1, h, w, 3) uint8 on the
+    CPU."""
+    import torch
+    from mergenet_tpu_torch import io
+    img = io.read_png_rgb(os.path.join(
+        FIX, "bench_img.png" if k == 0 else "bench_img_%d.png" % k))
+    up = torch.nn.functional.interpolate(
+        torch.from_numpy(img).permute(2, 0, 1)[None].float(), size=size,
+        mode="bilinear", align_corners=False)
+    return up.round().clamp(0, 255).to(torch.uint8).permute(
+        0, 2, 3, 1).contiguous()
+
+
+def _flagship_steps(p, net, dev, mesh, dtype, barrier=None):
+    """SPATIAL_STEPS steps of a copy of `net` (PSPFPNet-r50 holding the
+    payload's weights) on the payload's batch (`build_train_step_compact`
+    in float32; the float64 twin through `build_train_step` on float64
+    inputs and targets), over `mesh` or in one process: losses, ms per
+    step, running statistics after each step."""
+    import copy
+
+    import torch
+
+    from mergenet_tpu_torch.ops.targets import mask_to_target
+    from mergenet_tpu_torch.parallel import train as T
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    C, offsets = p["C"], p["offsets"]
+    tx = T.make_optimizer(lr=0.01, momentum=0.9, nesterov=True,
+                          weight_decay=1e-4)
+    model = copy.deepcopy(net).to(dev, dtype)
+    state = T.TrainState(step=0, model=model,
+                         optimizer=tx.init(model.parameters()), tx=tx)
+    u8, mask, oc = (torch.from_numpy(p["batch"][k]).to(dev)
+                    for k in ("image", "mask", "object_class"))
+    if dtype == torch.float32:
+        step = T.build_train_step_compact(C, offsets, alpha=TRAIN_ALPHA,
+                                          mesh=mesh)
+        args = (u8, mask, oc)
+    else:
+        step = T.build_train_step(C, len(offsets), alpha=TRAIN_ALPHA,
+                                  mesh=mesh)
+        args = (u8.to(dtype) / 256.0,
+                mask_to_target(mask, oc, C, offsets).to(dtype))
+    out = {"losses": [], "step_ms": [], "stats": []}
+    for _ in range(p["steps"]):
+        if barrier is not None:
+            barrier()
+        sync()
+        t = time.perf_counter()
+        state, m = step(state, *args)
+        sync()
+        out["step_ms"].append((time.perf_counter() - t) * 1e3)
+        out["losses"].append({k: float(v) for k, v in m.items()})
+        out["stats"].append({k: v.double().cpu().numpy()
+                             for k, v in state.model.named_buffers()
+                             if k.endswith(("running_mean",
+                                            "running_var"))})
+    return out
+
+
+def _spatial_rank(rank, world, work, device, backend):
+    """One rank of the spatial phase (a spawned process): a `backend`
+    group over a FileStore in `work` (NCCL: card `rank`), the payload's
+    meshes on `device`, its three paths with their launches counted;
+    writes its results to work/rank<r>.pt."""
+    t_start = time.time()
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if backend == "nccl":
+        device = "cuda:%d" % rank
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(work, "store"), world), rank=rank, world_size=world)
+    try:
+        out = _spatial_rank_run(rank, world, work, device)
+        out["clock"]["start"] = t_start
+        torch.save(out, os.path.join(work, "rank%d.pt" % rank))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spatial_rank_run(rank, world, work, device):
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from mergenet_tpu_torch.convert import load_flax_weights
+    from mergenet_tpu_torch.decoder import device as D
+    from mergenet_tpu_torch.models import PSPFPNet
+    from mergenet_tpu_torch.ops import _build
+    from mergenet_tpu_torch.parallel import halo, make_mesh
+    from mergenet_tpu_torch.parallel import mesh as M
+    from mergenet_tpu_torch.parallel.spatial import build_sharded_forward
+    from mergenet_tpu_torch.serving import build_serving_pipeline
+
+    p = torch.load(os.path.join(work, "payload.pt"), weights_only=False)
+    mesh = make_mesh(*p["mesh"], device=device)  # (i) and (iii)
+    frame_mesh = make_mesh(*p["frame_mesh"], device=device)  # (ii)
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        _build.library()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+    C, offsets = p["C"], p["offsets"]
+    nout = C + len(offsets)
+    # one build per process (a ResNet-50's init takes seconds on a busy
+    # host): the steps, the forward and serving copy it
+    net = load_flax_weights(PSPFPNet(nout), p["params"], p["stats"])
+    fwd = build_sharded_forward(net, frame_mesh, apply_sigmoid=False,
+                                output_size=p["decode_size"])
+    serve = build_serving_pipeline(net, C, offsets,
+                                   decode_size=p["decode_size"],
+                                   device=dev, mesh=mesh)
+    frame = p["frame"].to(dev).float() / 256.0
+    frames = p["frames"].to(dev).float() / 256.0
+    clock = {"ready": time.time()}
+    while not os.path.exists(os.path.join(work, "go")):
+        time.sleep(0.01)  # the one-process references run first
+    clock["go"] = time.time()
+    out = {"coords": mesh.coords, "backend": dist.get_backend(),
+           "device": str(dev),
+           "host_staged": M.host_route(mesh.axis("spatial"), dev),
+           "clock": clock}
+    peak = {}
+
+    # (i) the flagship step, data=1 x spatial=2, and its float64 twin
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = dict(M.TRANSPORT)
+    out["train"] = _flagship_steps(p, net, dev, mesh, torch.float32,
+                                   dist.barrier)
+    out["train_launches"] = dict(_build.LAUNCHES)
+    out["transport"] = {k: M.TRANSPORT[k] - t0[k] for k in t0}
+    if cuda:
+        peak["train"] = torch.cuda.max_memory_allocated(dev)
+    clock["train"] = time.time()
+    out["train64"] = _flagship_steps(p, net, dev, mesh, torch.float64,
+                                     dist.barrier)
+    clock["train64"] = time.time()
+
+    # (ii) the served frame: the height-sharded forward, the decode of
+    # the gathered logits
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    fwd(frame)  # warm-up
+    ms = []
+    for _ in range(3):
+        dist.barrier()
+        sync()
+        b0 = dict(halo.STATS)
+        t = time.perf_counter()
+        lg = fwd(frame)
+        sync()
+        ms.append((time.perf_counter() - t) * 1e3)
+    out["forward_ms"] = statistics.median(ms)
+    out["halo_bytes_per_forward"] = halo.STATS["halo_bytes"] - b0[
+        "halo_bytes"]
+    out["halo_exchanges_per_forward"] = halo.STATS["halo_exchanges"] - b0[
+        "halo_exchanges"]
+    out["gather_bytes_per_forward"] = halo.STATS["gather_bytes"] - b0[
+        "gather_bytes"]
+    _build.reset_launches()
+    lg = fwd(frame)[0]
+    if rank == 0:
+        mask, classes = D.decode_hierarchical(
+            lg[..., :C], lg[..., C:], C, offsets, object_merge_factor=1.0,
+            merge_logprob_bias=0.03, relabel=True, from_logits=True,
+            device=dev)
+        out["frame_mask"] = mask.cpu().numpy()
+        out["frame_logits"] = lg.cpu().numpy()
+    sync()
+    out["frame_launches"] = dict(_build.LAUNCHES)
+    if cuda:
+        peak["frame"] = torch.cuda.max_memory_allocated(dev)
+    clock["frame"] = time.time()
+
+    # (iii) serving on the (1, 2, 1) mesh: both ranks serve both frames
+    _build.reset_launches()
+    masks, classes = serve(frames)
+    sync()
+    out["serve_launches"] = dict(_build.LAUNCHES)
+    out["serve"] = (masks.cpu().numpy(), classes.cpu().numpy())
+    out["peak_bytes"] = peak
+    clock["serve"] = time.time()
+    return out
+
+
+def spatial_start(device="cuda", backend="gloo",
+                  mesh=(1, SPATIAL_RANKS, 1), frame_mesh=None):
+    """Write the spatial phase's payload and spawn its ranks (one per
+    position of `mesh` (data, spatial, model): on the one card over gloo,
+    or one card each over NCCL); they build their nets and wait for
+    `spatial_phase`.  (i) and (iii) run on `mesh`, (ii) on `frame_mesh`
+    (default: `mesh`).  Returns the run's state; `spatial_stop` ends
+    it."""
+    import multiprocessing
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mergenet_tpu_torch import io
+
+    work = os.path.join(HERE, "mergenet_tpu_torch", "_build", "spatial")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    params, stats = io.load_bench_checkpoint(os.path.join(FIX,
+                                                          "bench_ckpt.npz"))
+    batch, _ = train_data(np.random.default_rng(1), SPATIAL_BATCH,
+                          SPATIAL_CROP)
+    frame = bench_frame(0, SPATIAL_FRAME)
+    payload = {"C": 9, "offsets": io.load_offsets(FIX), "params": params,
+               "stats": stats, "batch": batch, "frame": frame,
+               "frames": torch.cat([frame, bench_frame(1, SPATIAL_FRAME)]),
+               "steps": SPATIAL_STEPS, "decode_size": SPATIAL_DECODE,
+               "mesh": tuple(mesh), "frame_mesh": tuple(frame_mesh or mesh)}
+    torch.save(payload, os.path.join(work, "payload.pt"))
+    world = int(np.prod(mesh))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_spatial_rank,
+                         args=(r, world, work, device, backend))
+             for r in range(world)]
+    run = {"work": work, "payload": payload, "procs": procs,
+           "world": world, "device": device, "t_spawn": time.time()}
+    for proc in procs:
+        proc.start()
+    return run
+
+
+def spatial_stop(run):
+    """Kill and join every rank of `run` still alive."""
+    for proc in run["procs"]:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+
+
+def spatial_phase(run, paths, smi, sw, max_s=SPATIAL_MAX_S):
+    """The spatial phase (SPATIAL_* above) on the ranks `spatial_start`
+    spawned: the one-process references in this process, then the ranks'
+    paths; gates: (i) the flagship step's losses and running statistics
+    against the one-process step's, (ii) the sharded frame's decode
+    against the unsharded frame's, (iii) mesh serving equal to plain
+    serving, and the phase (from here) within `max_s` (None: no
+    budget).  Every rank is joined or killed."""
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from mergenet_tpu_torch.convert import load_flax_weights
+    from mergenet_tpu_torch.decoder import device as D
+    from mergenet_tpu_torch.models import PSPFPNet, logits_at
+    from mergenet_tpu_torch.serving import build_serving_pipeline
+
+    t_phase, t_phase_wall = time.perf_counter(), time.time()
+    payload, work, procs = run["payload"], run["work"], run["procs"]
+    world, t_spawn = run["world"], run["t_spawn"]
+    mesh = payload["mesh"]
+    C, offsets = payload["C"], payload["offsets"]
+    params, stats = payload["params"], payload["stats"]
+    nout = C + len(offsets)
+    frame, frames = payload["frame"], payload["frames"]
+    dev = torch.device(run["device"])
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+    try:
+        with sw.span("spatial references", sync=dev if cuda else None):
+            # (i) the one-process steps on the same batch and weights
+            base = load_flax_weights(PSPFPNet(nout), params, stats)
+            ref = {dt: _flagship_steps(payload, base, dev, None, dt)
+                   for dt in (torch.float32, torch.float64)}
+            # (ii) the unsharded frame
+            net = base.to(dev).eval()
+            x = frame.to(dev).float() / 256.0
+            ref_lg = logits_at(net, x, SPATIAL_DECODE)
+            fwd_ms = []
+            for _ in range(3):
+                sync()
+                t = time.perf_counter()
+                logits_at(net, x, SPATIAL_DECODE)
+                sync()
+                fwd_ms.append((time.perf_counter() - t) * 1e3)
+            lg = ref_lg[0]
+            ref_mask, _ = D.decode_hierarchical(
+                lg[..., :C], lg[..., C:], C, offsets,
+                object_merge_factor=1.0, merge_logprob_bias=0.03,
+                relabel=True, from_logits=True, device=dev)
+            ref_mask, ref_lg = ref_mask.cpu().numpy(), ref_lg.cpu().numpy()
+            # (iii) plain serving
+            plain = build_serving_pipeline(net, C, offsets,
+                                           decode_size=SPATIAL_DECODE,
+                                           device=dev)
+            ref_serve = [t.cpu().numpy() for t in plain(
+                frames.to(dev).float() / 256.0)]
+            del net, plain, x, lg
+        t_go = time.time()
+        open(os.path.join(work, "go"), "w").close()
+        with sw.span("spatial ranks"):
+            for proc in procs:
+                proc.join(SPATIAL_TIMEOUT_S)
+        codes = [proc.exitcode for proc in procs]
+        if codes != [0] * world:
+            raise AssertionError("spatial ranks exited with %s" % codes)
+    finally:
+        spatial_stop(run)
+    ranks = [torch.load(os.path.join(work, "rank%d.pt" % r),
+                        weights_only=False) for r in range(world)]
+
+    def total(key):
+        out = {}
+        for r in ranks:
+            for k, v in r[key].items():
+                out[k] = out.get(k, 0) + int(v)
+        return {k: out.get(k, 0) for k in ("floodscan", "absorb",
+                                           "tgather", "pgather")}
+    paths["spatial train"] = total("train_launches")
+    paths["spatial frame"] = total("frame_launches")
+    paths["spatial serving"] = total("serve_launches")
+
+    def loss_rel(a, b):
+        return max(abs(x[k] - y[k]) / abs(y[k])
+                   for x, y in zip(a["losses"], b["losses"]) for k in y)
+
+    def stats_excess(a, b, step, tol):
+        """max |a - b| - tol * |b| over the running statistics after
+        `step`: within the gate when <= tol."""
+        return max(float((np.abs(a["stats"][step][k] - v)
+                          - tol * np.abs(v)).max())
+                   for k, v in b["stats"][step].items())
+    r32, r64 = ref[torch.float32], ref[torch.float64]
+    last = SPATIAL_STEPS - 1
+    trains = [r["train"] for r in ranks]
+    trains64 = [r["train64"] for r in ranks]
+    steps = {
+        "loss_rel": max(loss_rel(t, r32) for t in trains),
+        "stats_excess_step1": max(stats_excess(t, r32, 0, SPATIAL_STATS_TOL)
+                                  for t in trains),
+        "stats_excess_last": max(stats_excess(t, r32, last,
+                                              SPATIAL_STATS_TOL)
+                                 for t in trains),
+        "f64_loss_rel": max(loss_rel(t, r64) for t in trains64),
+        "f64_stats_excess": max(stats_excess(t, r64, last, SPATIAL_F64_TOL)
+                                for t in trains64),
+        # float32 against float64, one process and sharded: how far the
+        # second step's statistics move with float32 sums alone
+        "f32_vs_f64_one_process": {
+            "loss_rel": loss_rel(r32, r64),
+            "stats_excess_last": stats_excess(r32, r64, last,
+                                              SPATIAL_STATS_TOL)},
+        "f32_vs_f64_sharded": {
+            "loss_rel": max(loss_rel(t, r64) for t in trains),
+            "stats_excess_last": max(stats_excess(t, r64, last,
+                                                  SPATIAL_STATS_TOL)
+                                     for t in trains)}}
+    lg_err = float(np.abs(ranks[0]["frame_logits"] - ref_lg).max())
+    frame_check = check_decode("spatial frame (sharded vs unsharded)",
+                               ranks[0]["frame_mask"], ref_mask,
+                               names=("sharded", "unsharded"))
+    serve_equal = all(np.array_equal(a, b) for r in ranks
+                      for a, b in zip(r["serve"], ref_serve))
+    out = {
+        "mesh": dict(zip(("data", "spatial", "model"), mesh)),
+        "spawn_to_phase_s": t_phase_wall - t_spawn,
+        "frame_mesh": dict(zip(("data", "spatial", "model"),
+                               payload["frame_mesh"])),
+        "backend": ranks[0]["backend"],
+        "devices": [r["device"] for r in ranks],
+        "host_staged": ranks[0]["host_staged"],
+        "config": {"model": "PSPFPNet-r50", "classes": C,
+                   "offsets": len(offsets), "batch": SPATIAL_BATCH,
+                   "crop": list(SPATIAL_CROP), "steps": SPATIAL_STEPS,
+                   "dtype": "float32", "tf32": False,
+                   "frame": list(SPATIAL_FRAME),
+                   "decode": list(SPATIAL_DECODE)},
+        "losses": [[l["loss"] for l in t["losses"]] for t in trains],
+        "ref_losses": [l["loss"] for l in r32["losses"]],
+        "f64_losses": [[l["loss"] for l in t["losses"]] for t in trains64],
+        "f64_ref_losses": [l["loss"] for l in r64["losses"]],
+        "steps": steps,
+        "step_ms": [t["step_ms"] for t in trains],
+        "ref_step_ms": r32["step_ms"],
+        "f64_step_ms": [t["step_ms"] for t in trains64],
+        "f64_ref_step_ms": r64["step_ms"],
+        "transport_per_train": [r["transport"] for r in ranks],
+        "forward_ms": [r["forward_ms"] for r in ranks],
+        "ref_forward_ms": statistics.median(fwd_ms),
+        "halo_bytes_per_forward": [r["halo_bytes_per_forward"]
+                                   for r in ranks],
+        "halo_exchanges_per_forward": [r["halo_exchanges_per_forward"]
+                                       for r in ranks],
+        "gather_bytes_per_forward": [r["gather_bytes_per_forward"]
+                                     for r in ranks],
+        "frame_logits_max_abs": lg_err, "frame_check": frame_check,
+        "serve_equal": serve_equal,
+        "peak_bytes": [r["peak_bytes"] for r in ranks],
+        "launches": {k: paths[k] for k in ("spatial train", "spatial frame",
+                                           "spatial serving")},
+        # seconds from the spawn: each rank's start, ready (model built,
+        # waiting), the go (references done), then the end of each part
+        "clock": {"go": t_go - t_spawn, "ranks": [
+            {k: v - t_spawn for k, v in r["clock"].items()}
+            for r in ranks]},
+        "phase_s": time.perf_counter() - t_phase}
+    print("  backend %s (the halo exchange's device tensors staged through "
+          "host memory: %s; the collectives take them as they are); "
+          "mesh %s, the frame's %s; ranks on %s" % (
+              out["backend"], out["host_staged"], out["mesh"],
+              out["frame_mesh"], out["devices"]), flush=True)
+    print("  (i) %d steps, batch %d of %dx%d, float32: losses %s vs one "
+          "process %s (max rel %.2e, limit %.0e); running stats past "
+          "%.0e relative after step 1 %.2e (limit %.0e), after step %d "
+          "%.2e; float64 twin: losses %s vs %s (max rel %.2e), stats past "
+          "%.0e relative %.2e (limit %.0e); float32 vs float64 after step "
+          "%d: one process %s, sharded %s; ms per step sharded %s, one "
+          "process %s; float64 sharded %s, one process %s; transport per "
+          "%d steps %s (%s)" % (
+              SPATIAL_STEPS, SPATIAL_BATCH, SPATIAL_CROP[0],
+              SPATIAL_CROP[1], out["losses"], out["ref_losses"],
+              steps["loss_rel"], SPATIAL_LOSS_RTOL, SPATIAL_STATS_TOL,
+              steps["stats_excess_step1"], SPATIAL_STATS_TOL,
+              SPATIAL_STEPS, steps["stats_excess_last"], out["f64_losses"],
+              out["f64_ref_losses"], steps["f64_loss_rel"], SPATIAL_F64_TOL,
+              steps["f64_stats_excess"], SPATIAL_F64_TOL, SPATIAL_STEPS,
+              steps["f32_vs_f64_one_process"],
+              steps["f32_vs_f64_sharded"], out["step_ms"],
+              out["ref_step_ms"], out["f64_step_ms"],
+              out["f64_ref_step_ms"], SPATIAL_STEPS,
+              out["transport_per_train"], smi), flush=True)
+    print("  (ii) frame %dx%d -> logits %dx%d: sharded forward ms %s, "
+          "unsharded %.2f; halo bytes per forward %s (%s exchanges), "
+          "gathered bytes %s; logits max abs %.2e (%s)" % (
+              SPATIAL_FRAME + SPATIAL_DECODE + (
+                  out["forward_ms"], out["ref_forward_ms"],
+                  out["halo_bytes_per_forward"],
+                  out["halo_exchanges_per_forward"],
+                  out["gather_bytes_per_forward"], lg_err, smi)), flush=True)
+    print("  (iii) serving 2 frames on %s: equal to plain serving: %s; "
+          "peak bytes per rank %s; launches %s" % (
+              tuple(mesh), serve_equal, out["peak_bytes"], out["launches"]),
+          flush=True)
+    gates = [
+        ("(i) float32 losses within %.0e" % SPATIAL_LOSS_RTOL,
+         steps["loss_rel"] <= SPATIAL_LOSS_RTOL),
+        ("(i) float32 running statistics of step 1 within %.0e"
+         % SPATIAL_STATS_TOL,
+         steps["stats_excess_step1"] <= SPATIAL_STATS_TOL),
+        ("(i) float64 losses within %.0e" % SPATIAL_F64_TOL,
+         steps["f64_loss_rel"] <= SPATIAL_F64_TOL),
+        ("(i) float64 running statistics within %.0e" % SPATIAL_F64_TOL,
+         steps["f64_stats_excess"] <= SPATIAL_F64_TOL),
+        ("(i) the step launched no decode kernel",
+         not any(paths["spatial train"].values())),
+        ("(ii) floodscan and absorb on the sharded frame",
+         paths["spatial frame"]["floodscan"] >= 1
+         and paths["spatial frame"]["absorb"] >= 1),
+        ("(iii) serving equal to plain serving", serve_equal),
+        ("(iii) floodscan and absorb on every rank",
+         paths["spatial serving"]["floodscan"] >= 2 * world // mesh[0]
+         and paths["spatial serving"]["absorb"] >= 2 * world // mesh[0]),
+        ("the phase within %s s" % max_s,
+         max_s is None or out["phase_s"] <= max_s)]
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        raise AssertionError("spatial gates failed: %s" % failed)
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def spatial_cards(smi, kind):
+    """`chip_smoke.py --cards`: the spatial phase alone over NCCL, one
+    rank per card of the machine (two or more): the dry run's data x
+    spatial layout (cards/2, 2, 1) for the steps and serving, the frame
+    height-sharded over every card (1, cards, 1); device tensors cross
+    the ranks as they are.  Prints its `spatial {...}` line and the
+    device line last; exits non-zero on a failed gate."""
+    import torch
+
+    from mergenet_tpu_torch.utils import profiling
+
+    n = torch.cuda.device_count()
+    if n < 2 or n % 2:
+        print("chip_smoke --cards: needs an even number of cards, found %d"
+              % n, file=sys.stderr)
+        return 1
+    phase("spatial over NCCL: PSPFPNet-r50 on %d cards, steps and serving "
+          "on (%d, 2, 1), the frame on (1, %d, 1)" % (n, n // 2, n))
+    paths, sw = {}, profiling.Stopwatch()
+    # outside the smoke run's 600 s guard: no 60 s budget (the NCCL
+    # groups' first use and the ranks' start take ~75 s on 4 cards)
+    run = spatial_start(backend="nccl", mesh=(n // 2, 2, 1),
+                        frame_mesh=(1, n, 1))
+    try:
+        out = spatial_phase(run, paths, smi, sw, max_s=None)
+    finally:
+        spatial_stop(run)
+    print("spatial " + json.dumps({"card": smi, **out}), flush=True)
+    sw.summary()
+    phase("done")
+    print(smi, flush=True)
+    signal.alarm(0)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": n}}), flush=True)
+    return 0
+
 
 def main():
     import numpy as np
@@ -2307,6 +2949,9 @@ def main():
           "%.2f s -> %s"
           % (len(_build.sources()), _build.build_seconds,
              os.path.relpath(_build.library_path(), HERE)), flush=True)
+
+    if "--cards" in sys.argv[1:]:
+        return spatial_cards(smi, kind)
 
     # ---- 3. kernels against their plain versions, at the slice's shapes --
     phase("kernels vs plain versions")
@@ -2897,7 +3542,7 @@ def main():
     converter = converter_phase(drive, smi, sw, data_dir)
     print("converter " + json.dumps({"card": smi, **converter}), flush=True)
     phase("certification (c): bench_ckpt on the 50 regenerated val images "
-          "(hier and exact)")
+          "(hier; exact on images 0-%d)" % (CERT_C_EXACT_IMAGES - 1))
     cert_c = cert_c_phase(drive, smi, sw, data_dir)
     print("certification_c " + json.dumps({"card": smi, **cert_c}),
           flush=True)
@@ -2906,10 +3551,24 @@ def main():
     cert_d = cert_d_phase(drive, smi, sw, data_dir)
     print("certification_d " + json.dumps({"card": smi, **cert_d}),
           flush=True)
-    phase("recipes: infer_pspfpnet.sh stages 0-4, infer_e2e and the train "
-          "recipe (plain and torchrun) on the 50 regenerated val images")
-    recipes = recipes_phase(drive, paths, smi, sw, data_dir)
-    print("recipes " + json.dumps({"card": smi, **recipes}), flush=True)
+    # the spatial phase's ranks start with the recipes, whose chain is
+    # host-bound and read in process seconds: they build their nets and
+    # wait, idle, until the spatial phase; no timed window of another
+    # phase overlaps them (their start takes ~10-20 s of host)
+    spatial_run = spatial_start()
+    try:
+        phase("recipes: infer_pspfpnet.sh stages 0-4, infer_e2e and the "
+              "train recipe (plain and torchrun) on the 50 regenerated val "
+              "images")
+        recipes = recipes_phase(drive, paths, smi, sw, data_dir)
+        print("recipes " + json.dumps({"card": smi, **recipes}), flush=True)
+        phase("spatial: PSPFPNet-r50 height-sharded over %d ranks on the "
+              "card (gloo): the dry run's step, the served frame, serving"
+              % SPATIAL_RANKS)
+        spatial = spatial_phase(spatial_run, paths, smi, sw)
+    finally:
+        spatial_stop(spatial_run)
+    print("spatial " + json.dumps({"card": smi, **spatial}), flush=True)
     phase("train: PSPNet-r101 with the aux head, batch %d, %d^2 crops, "
           "aux_weight %g, bf16" % (TRAIN_BATCH, TRAIN_CROP,
                                    TRAIN_AUX_WEIGHT))
@@ -2974,6 +3633,7 @@ def main():
                "staged": staged, "train_aux": train_aux, "data": data,
                "certification_c": cert_c, "certification_d": cert_d,
                "recipes": recipes, "converter": converter, "jpeg": jpeg_r,
+               "spatial": spatial,
                "launches_by_path": paths,
                "total_s": time.perf_counter() - T0}
     print("summary " + json.dumps(summary), flush=True)

@@ -108,13 +108,16 @@ def _sync(dev):
 
 
 def score(model, data_dir, num_classes, offsets, decoders=("hier", "exact"),
-          device=None, on_probs=None, log=None):
+          device=None, on_probs=None, log=None, exact_images=None,
+          on_exact=None):
     """Run `model` (moved to `device`, in eval mode; float32 sigmoid maps
     at the image size) on every val image of `data_dir` and decode with
     each of `decoders` ('hier', 'exact', 'cpp').  `on_probs(n, img_id,
-    cp, sp)` sees each image's numpy maps.  Returns {"hier": (AP, AP50),
-    ..., "times_s": {...}, "overflow": {...}, "images": N, "results":
-    {decoder: COCO results}}."""
+    cp, sp)` sees each image's numpy maps, `on_exact(n, img_id, mask,
+    classes)` each exact decode.  `exact_images=k` decodes 'exact' on
+    the first k val images only and scores it over them.
+    Returns {"hier": (AP, AP50), ..., "times_s": {...}, "overflow":
+    {...}, "images": N, "results": {decoder: COCO results}}."""
     dev = T.resolve_device(device)
     C = num_classes
     with contextlib.redirect_stdout(_io.StringIO()):
@@ -152,11 +155,14 @@ def score(model, data_dir, num_classes, offsets, decoders=("hier", "exact"),
             res["hier"] += masks_to_results(mask[None], ic[None], [img_id],
                                             cats)
         cf, sf = np.moveaxis(cp, -1, 0), np.moveaxis(sp, -1, 0)
-        if "exact" in decoders:
+        if "exact" in decoders and (exact_images is None
+                                    or n < exact_images):
             t0 = time.perf_counter()
             emask, ecls = run_segmentation_device(cf, sf, C, offsets,
                                                   device=dev, **DECODE_KW)
             times["exact"] += time.perf_counter() - t0
+            if on_exact is not None:
+                on_exact(n, img_id, emask, ecls)
             res["exact"] += _results(emask, ecls, img_id, cats)
         if "cpp" in decoders:
             t0 = time.perf_counter()
@@ -170,7 +176,8 @@ def score(model, data_dir, num_classes, offsets, decoders=("hier", "exact"),
     out = {"times_s": times, "overflow": overflow, "images": len(val_ids),
            "results": res}
     for k in decoders:
-        out[k] = coco_ap(coco, res[k])
+        ids = val_ids[:exact_images] if k == "exact" else None
+        out[k] = coco_ap(coco, res[k], ids)
     return out
 
 

@@ -6,7 +6,8 @@ resize to the output size.  NHWC in, float32 NHWC logits out."""
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Dropout, conv2d, nhwc_logits, resize_bilinear, to_nchw
+from .layers import (Dropout, conv2d, hw, nhwc_logits, resize_bilinear,
+                     to_nchw)
 from .resnet import ResNetBackbone, feature_dims
 from .vgg import VGG16Backbone, vgg_width
 
@@ -28,11 +29,9 @@ def _fuse(model, score, tap16, tap8):
     """Add the /16 and /8 score maps to the upsampled coarser score, as
     far as the model's scale asks."""
     if model.scale <= 16:
-        score = model.score_16s(tap16) + resize_bilinear(score,
-                                                         tap16.shape[-2:])
+        score = model.score_16s(tap16) + resize_bilinear(score, hw(tap16))
     if model.scale <= 8:
-        score = model.score_8s(tap8) + resize_bilinear(score,
-                                                       tap8.shape[-2:])
+        score = model.score_8s(tap8) + resize_bilinear(score, hw(tap8))
     return score
 
 
@@ -53,8 +52,9 @@ class FCNResNet(nn.Module):
     def forward(self, x, output_size=None):
         """x: (N, H, W, 3) NHWC float.  Returns (N, h, w, num_outputs)
         float32 logits at `output_size` (default: the input size)."""
-        out_size = tuple(output_size) if output_size else x.shape[1:3]
-        _, c3, c4, c5 = self.ResNetBackbone_0(to_nchw(x, self.dtype))
+        x = to_nchw(x, self.dtype)
+        out_size = tuple(output_size) if output_size else hw(x)
+        _, c3, c4, c5 = self.ResNetBackbone_0(x)
         return nhwc_logits(_fuse(self, self.score_32s(c5), c4, c3),
                            out_size)
 
@@ -86,8 +86,9 @@ class FCNVGG16(nn.Module):
         self.num_outputs = num_outputs
 
     def forward(self, x, output_size=None):
-        out_size = tuple(output_size) if output_size else x.shape[1:3]
-        _, _, b3, b4, b5 = self.VGG16Backbone_0(to_nchw(x, self.dtype))
+        x = to_nchw(x, self.dtype)
+        out_size = tuple(output_size) if output_size else hw(x)
+        _, _, b3, b4, b5 = self.VGG16Backbone_0(x)
         y = self.Dropout_0(F.relu(self.Conv_0(b5)))
         y = self.Dropout_1(F.relu(self.Conv_1(y)))
         return nhwc_logits(_fuse(self, self.score_32s(y), b4, b3), out_size)

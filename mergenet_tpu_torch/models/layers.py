@@ -10,13 +10,34 @@ tree onto the state dict by name.
 Compute dtype: every conv casts its weight and bias to its input's
 dtype at use, so a model holding float32 parameters runs in bf16 when
 its input is bf16 (the reference's `dtype=jnp.bfloat16`: float32
-params, bf16 compute); batch norm keeps float32 statistics."""
+params, bf16 compute); batch norm keeps float32 statistics.
+
+Height sharding: while a step or forward runs over a mesh whose spatial
+axis is above 1, `SPATIAL` holds its `parallel.halo.SpatialContext`
+and the ops whose windows cross rows (convs, pooling, resizes, the
+stem) ask it for their rows; sizes the models pass between layers are
+global sizes (`hw`).  Without it every op is the plain one."""
 
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+#: the spatial context of a height-sharded run (`parallel.halo.spatial`
+#: sets it), else None
+SPATIAL = None
+
+
+def hw(x):
+    """The global spatial size (h, w) of an NCHW activation."""
+    return SPATIAL.hw(x) if SPATIAL is not None else tuple(x.shape[-2:])
+
+
+def replicate(x):
+    """`x` whole on every rank of a spatial axis (gathered when it is
+    height-sharded); `x` itself otherwise."""
+    return SPATIAL.gather(x) if SPATIAL is not None else x
 
 
 class Conv2d(nn.Conv2d):
@@ -25,6 +46,9 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        if SPATIAL is not None:
+            return SPATIAL.conv(x, self.weight.to(x.dtype), bias,
+                                self.stride, self.padding, self.dilation)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
@@ -35,8 +59,14 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
-                                  self.stride, self.padding)
+
+        def fn(t):
+            return F.conv_transpose2d(t, self.weight.to(x.dtype), bias,
+                                      self.stride, self.padding)
+        if SPATIAL is not None:
+            return SPATIAL.conv_transpose(x, fn, self.kernel_size[0],
+                                          self.stride[0], self.padding[0])
+        return fn(x)
 
 
 def conv2d(cin, cout, k, stride=1, padding=0, dilation=1, bias=False):
@@ -64,13 +94,15 @@ class SyncBatchNorm(nn.Module):
     Eval mode: y = (x - mean) * scale / sqrt(var + eps) + bias, with the
     affine folded in float32 and applied in the input's dtype.
 
-    Cross-replica statistics: while `mesh` holds a data-parallel
-    `parallel.Mesh` (the train steps set it), train mode takes the
-    statistics of the global batch, as GSPMD gives the reference: the
-    per-channel sums are all-reduced to the global mean, then the sums
-    of squared deviations from it to the global (biased) variance, both
-    reductions differentiable (`torch.distributed.nn`).  Not
-    `torch.nn.SyncBatchNorm`, whose running variance is unbiased."""
+    Cross-replica statistics: while `mesh` holds a `parallel.Mesh` (the
+    train steps set it), train mode takes the statistics of the global
+    batch, as GSPMD gives the reference: each rank's per-channel mean
+    and sum of squared deviations from it are gathered in one
+    differentiable collective and merged into the global mean and
+    (biased) variance.  A height-sharded activation reduces over the data
+    x spatial ranks of this model replica, a whole one over the data
+    ranks of its (spatial, model) position: every pixel counts once.
+    Not `torch.nn.SyncBatchNorm`, whose running variance is unbiased."""
 
     MOMENTUM = 0.9
 
@@ -93,15 +125,10 @@ class SyncBatchNorm(nn.Module):
         return x * a.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
 
     def _global_train_forward(self, x):
-        from torch.distributed.nn.functional import all_reduce
         pdt = torch.promote_types(x.dtype, torch.float32)
         xf = x.to(pdt)
-        # every rank holds an equal shard (`parallel.mesh.local_slice`)
-        count = float(x.numel() // x.shape[1] * self.mesh.world)
-        dims = (0, 2, 3)
-        mean = all_reduce(xf.sum(dims)) / count
+        mean, var = self.mesh.moments(xf)
         d = xf - mean[:, None, None]
-        var = all_reduce((d * d).sum(dims)) / count
         scale = self.weight.to(pdt) * torch.rsqrt(var + self.eps)
         y = d * scale[:, None, None] + self.bias.to(pdt)[:, None, None]
         if self.update_stats:
@@ -174,6 +201,8 @@ class StemConv7(nn.Module):
 
     def forward(self, x):
         w = self.weight.to(x.dtype)
+        if SPATIAL is not None:
+            return SPATIAL.stem(x, w, self.s2d)
         if self.s2d and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
             return F.conv2d(F.pad(space_to_depth(x), (2, 1, 2, 1)),
                             _s2d_stem_kernel(w))
@@ -186,12 +215,15 @@ class Dropout(nn.Module):
     it) and scaled by 1 / (1 - rate); in eval mode the identity.  The
     draws come from `generator`, a `torch.Generator` on the input's
     device that the train step sets (its `rng` argument); train mode
-    without one raises: torch's global generator is never used."""
+    without one raises: torch's global generator is never used.  While
+    `mesh` holds a `parallel.Mesh` (the train steps set it), the mask is
+    this rank's block of the global batch's, as GSPMD draws it."""
 
     def __init__(self, rate):
         super().__init__()
         self.rate = rate
         self.generator = None
+        self.mesh = None
 
     def mask(self, x):
         """The keep mask of `x`'s shape (True = kept)."""
@@ -199,6 +231,8 @@ class Dropout(nn.Module):
             raise RuntimeError(
                 "dropout in train mode needs a torch.Generator: pass the "
                 "train step its rng argument")
+        if self.mesh is not None:
+            return self.mesh.dropout_mask(x, self.rate, self.generator)
         return torch.rand(x.shape, generator=self.generator,
                           device=x.device) < 1.0 - self.rate
 
@@ -222,6 +256,10 @@ class ConcatFusionConv(nn.Module):
 
     def forward(self, parts):
         x = torch.cat(parts, dim=1)
+        if SPATIAL is not None:
+            return SPATIAL.conv(x, self.weight.to(x.dtype),
+                                self.bias.to(x.dtype), (1, 1), (1, 1),
+                                (1, 1))
         return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
                         padding=1)
 
@@ -248,11 +286,14 @@ def resize_bilinear(x, size):
     half-pixel centres (`align_corners=False`) with edge clamping, and an
     antialiasing triangle filter on each downsampled axis — the function
     `jax.image.resize(..., "bilinear")` computes, which the reference
-    uses for every resize (its upsampling matrices reproduce it)."""
+    uses for every resize (its upsampling matrices reproduce it).
+    `size` is global: a height shard resizes to its rows of it."""
     H, W = int(size[0]), int(size[1])
-    h, w = x.shape[-2:]
+    h, w = hw(x)
     if (H, W) == (h, w):
         return x
+    if SPATIAL is not None:
+        return SPATIAL.resize(x, (H, W), H < h or W < w)
     return F.interpolate(x, size=(H, W), mode="bilinear",
                          align_corners=False, antialias=(H < h or W < w))
 
@@ -271,6 +312,8 @@ def nhwc_logits(y, size):
 
 def max_pool(x, window=2, stride=2, padding=0):
     """Max pooling; padded positions never win (-inf padding)."""
+    if SPATIAL is not None:
+        return SPATIAL.max_pool(x, window, stride, padding)
     return F.max_pool2d(x, window, stride, padding)
 
 
@@ -278,5 +321,7 @@ def adaptive_avg_pool(x, out_size):
     """Adaptive average pooling to (out_size, out_size) over the
     floor/ceil index windows [floor(i*h/o), ceil((i+1)*h/o)) — the
     reference's general-case windows, and plain average pooling when
-    the size divides."""
+    the size divides.  A height shard is gathered first."""
+    if SPATIAL is not None:
+        return SPATIAL.adaptive_pool(x, out_size)
     return F.adaptive_avg_pool2d(x, out_size)

@@ -15,14 +15,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import (ConcatFusionConv, Dropout, SyncBatchNorm,
-                     adaptive_avg_pool, conv2d, nhwc_logits, resize_bilinear,
-                     to_nchw)
+                     adaptive_avg_pool, conv2d, hw, nhwc_logits, replicate,
+                     resize_bilinear, to_nchw)
 from .resnet import ResNetBackbone, feature_dims
 
 
 class PyramidPoolingModule(nn.Module):
     """Pool to each s in pool_sizes, 1x1 conv to in_dim/len(pool_sizes),
-    BN + relu, upsample back, concat with the input."""
+    BN + relu, upsample back, concat with the input.  The bins cross
+    height shards: a sharded input is gathered once for all of them."""
 
     def __init__(self, in_dim, pool_sizes=(1, 2, 3, 6)):
         super().__init__()
@@ -33,10 +34,11 @@ class PyramidPoolingModule(nn.Module):
             self.add_module("SyncBatchNorm_%d" % i, SyncBatchNorm(out_dim))
 
     def forward(self, x):
-        size = x.shape[-2:]
+        size = hw(x)
+        whole = replicate(x)
         out = [x]
         for i, s in enumerate(self.pool_sizes):
-            y = getattr(self, "Conv_%d" % i)(adaptive_avg_pool(x, s))
+            y = getattr(self, "Conv_%d" % i)(adaptive_avg_pool(whole, s))
             y = F.relu(getattr(self, "SyncBatchNorm_%d" % i)(y))
             out.append(resize_bilinear(y, size))
         return torch.cat(out, dim=1)
@@ -65,11 +67,10 @@ class FPNModule(nn.Module):
         last = laterals[-1]
         outs = [getattr(self, "fpn_out_%d" % (n - 1))(last)]
         for i in reversed(range(n - 1)):
-            last = laterals[i] + resize_bilinear(last,
-                                                 laterals[i].shape[-2:])
+            last = laterals[i] + resize_bilinear(last, hw(laterals[i]))
             outs.append(getattr(self, "fpn_out_%d" % i)(last))
         outs.reverse()  # [P2 .. P5]
-        size = outs[0].shape[-2:]
+        size = hw(outs[0])
         fusion = [outs[0]] + [resize_bilinear(f, size) for f in outs[1:]]
         x = F.relu(self.SyncBatchNorm_0(self.Conv_0(fusion)))
         return self.Conv_1(x)
@@ -99,8 +100,8 @@ class _PyramidFPN(nn.Module):
     def forward(self, x, output_size=None):
         """x: (N, H, W, 3) NHWC float.  Returns (N, h, w, num_outputs)
         float32 logits at `output_size` (default: the input size)."""
-        out_size = tuple(output_size) if output_size else x.shape[1:3]
         x = to_nchw(x, self.dtype)
+        out_size = tuple(output_size) if output_size else hw(x)
         c2, c3, c4, c5 = self.ResNetBackbone_0(x)
         c5 = self.PyramidPoolingModule_0(c5)
         y = self.FPNModule_0((c2, c3, c4, c5))
@@ -160,8 +161,8 @@ class PSPNet(nn.Module):
         """x: (N, H, W, 3) NHWC float.  Returns float32 logits (N, h, w,
         num_outputs) at `output_size` (default: the input size), and the
         auxiliary logits beside them when `with_aux`."""
-        out_size = tuple(output_size) if output_size else x.shape[1:3]
         x = to_nchw(x, self.dtype)
+        out_size = tuple(output_size) if output_size else hw(x)
         _, _, c4, c5 = self.ResNetBackbone_0(x)
         y = self.PyramidPoolingModule_0(c5)
         y = F.relu(self.SyncBatchNorm_0(self.Conv_0(y)))

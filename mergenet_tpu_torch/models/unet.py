@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (ConvTranspose2d, SyncBatchNorm, conv2d, max_pool,
+from .layers import (ConvTranspose2d, SyncBatchNorm, conv2d, hw, max_pool,
                      resize_bilinear, to_nchw)
 
 
@@ -57,7 +57,7 @@ class UpConv(nn.Module):
         if self.up_mode == "transpose":
             x = self.ConvTranspose_0(from_up)
         else:
-            h, w = from_up.shape[-2:]
+            h, w = hw(from_up)
             x = self.Conv_0(resize_bilinear(from_up, (2 * h, 2 * w)))
         if self.merge_mode == "concat":
             x = torch.cat([x, from_down], dim=1)

@@ -21,15 +21,20 @@ Steps run where the state lives (`create_train_state(device=None)`
 means CUDA and raises without it).  Inputs may be numpy arrays or
 tensors; metrics come back as 0-d tensors on that device, unsynced.
 
-With a data-parallel `mesh` (`parallel.mesh.make_mesh`; the state on
-the mesh's device), every rank gets the same global batch and takes its
-contiguous shard, or with `local_batch=True` gets only its shard (a
-loader sharded by rank, `data.DataLoader(shard=...)`); batch norm
-takes the global batch's statistics, the gradients are averaged over
-the ranks in one `all_reduce` of the flattened gradients (a fixed
-order), and the loss metrics are the global-batch means: the reference's GSPMD step.  The eval step gathers
-the probabilities and per-sample vectors of the whole batch on every
-rank (with `local_batch`, it returns this rank's)."""
+With a `mesh` (`parallel.mesh.make_mesh`; the state on the mesh's
+device), every rank gets the same global batch and takes the slice of
+its data index, or with `local_batch=True` gets only that slice (a
+loader sharded by data index, `data.DataLoader(shard=...)`).  With a
+spatial axis above 1 each rank of it runs the rows of its block of the
+image height (`parallel/halo.py`), and the compact step builds its
+targets from the whole masks of its slice, then keeps its rows.  Batch
+norm takes the global batch's statistics, each rank's loss covers its
+own output rows, the gradients are averaged over every rank in one
+`all_reduce` of the flattened gradients (a fixed order), and the loss
+metrics are the global means: the reference's GSPMD step.  Dropout
+draws the global batch's masks.  The eval step gathers the
+probabilities and per-sample vectors of the whole batch on every rank
+(with `local_batch`, it returns those of this rank's data slice)."""
 
 import contextlib
 import dataclasses
@@ -38,15 +43,19 @@ from typing import Callable
 
 import numpy as np
 import torch
-import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..models import REMAT_BLOCKS, init_model
 from ..models.layers import Dropout, SyncBatchNorm
-from ..ops.losses import bce_with_logits_loss
+from ..ops.losses import bce_with_logits_loss, weighted_bce_with_logits_loss
 from ..ops.targets import mask_to_target
-from .mesh import all_gather_batch, check_mesh, local_slice
+from .halo import as_rows, gather_rows, plain, rows_dim, spatial
+from .mesh import all_gather_batch, all_reduce_, check_mesh, local_slice
+
+#: criteria that are means of per-pixel terms: on a height shard each
+#: rank takes its own rows' mean; any other criterion gets whole maps
+ROW_MEANS = (bce_with_logits_loss, weighted_bce_with_logits_loss)
 
 
 def multistep_lr(base_lr, milestones, gamma=0.2, steps_per_epoch=1):
@@ -124,8 +133,8 @@ def _check(mesh):
 
 
 def _on(x, device, mesh=None, local=False):
-    """`x` on `device`; with a mesh, this rank's shard of it only (`x`
-    itself when it is the shard: `local`)."""
+    """`x` on `device`; with a mesh, the slice of this rank's data index
+    only (`x` itself when it is that slice: `local`)."""
     if mesh is not None and not local:
         x = x[local_slice(x.shape[0], mesh)]
     return torch.as_tensor(x, device=device)
@@ -134,8 +143,10 @@ def _on(x, device, mesh=None, local=False):
 @contextlib.contextmanager
 def _global_stats(model, mesh):
     """The model's batch norms take the global batch's statistics over
-    `mesh` during the step."""
-    bns = [m for m in model.modules() if isinstance(m, SyncBatchNorm)]
+    `mesh` during the step, and its dropouts draw the global batch's
+    masks."""
+    bns = [m for m in model.modules()
+           if isinstance(m, (SyncBatchNorm, Dropout))]
     for m in bns:
         m.mesh = mesh
     try:
@@ -150,7 +161,7 @@ def _average_gradients(model, mesh):
     of the gradients flattened in parameter order."""
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    all_reduce_(flat, mesh.axis("world"))
     flat /= mesh.world
     i = 0
     for g in grads:
@@ -159,13 +170,26 @@ def _average_gradients(model, mesh):
 
 
 def _global_mean(metrics, mesh):
-    """Scalar metrics averaged over the ranks (equal shards: the mean of
-    the shard means is the global-batch mean)."""
+    """Scalar metrics averaged over the ranks (equal blocks, or whole
+    maps alike on every rank of an axis: the mean of the ranks' means is
+    the global mean)."""
     keys = sorted(metrics)
     v = torch.stack([metrics[k] for k in keys])
-    dist.all_reduce(v)
+    all_reduce_(v, mesh.axis("world"))
     v /= mesh.world
     return dict(zip(keys, v.unbind()))
+
+
+def _matched(outs, target, mesh, criteria):
+    """(outs, target) for the loss: a height shard of the output with
+    the target's same rows when every criterion is a mean of per-pixel
+    terms, else the whole output (gathered; the target is whole)."""
+    if mesh is None or rows_dim(outs) is None:
+        return outs, target
+    if all(c is None or getattr(c, "func", c) in ROW_MEANS
+           for c in criteria):
+        return outs, as_rows(target, mesh)
+    return gather_rows(outs, mesh), target
 
 
 def _split_loss(logits, targets, num_classes, num_offsets, alpha,
@@ -251,21 +275,27 @@ def _grad_step(state, img, target, rng, num_classes, num_offsets, alpha,
                criterion_cls, criterion_ofs, remat, aux_weight, mesh):
     """forward (train mode, dropout from `rng`), loss (with the aux
     head's when `aux_weight`), backward, update; returns (state,
-    metrics).  With `mesh`, `img` and `target` are this rank's shard."""
+    metrics).  With `mesh`, `img` and `target` are the slice of this
+    rank's data index, whole in height."""
     model = state.model.train()
     state.optimizer.zero_grad(set_to_none=True)
     kwargs = {"with_aux": True} if aux_weight else {}
+    criteria = (criterion_cls, criterion_ofs)
     with contextlib.ExitStack() as ctx:
         ctx.enter_context(_dropout_rng(model, rng))
         if mesh is not None:
             ctx.enter_context(_global_stats(model, mesh))
+            ctx.enter_context(spatial(mesh))
+            img = as_rows(img, mesh)
         if remat:
             ctx.enter_context(_checkpointed(model, rng))
         outs = model(img, **kwargs)
         if aux_weight:
             outs, aux = outs
-            aux_l, _, _ = _split_loss(aux, target, num_classes, num_offsets,
+            aux, tg = _matched(aux, target, mesh, criteria)
+            aux_l, _, _ = _split_loss(aux, tg, num_classes, num_offsets,
                                       alpha, criterion_cls, criterion_ofs)
+        outs, target = _matched(outs, target, mesh, criteria)
         total, cls_l, ofs_l = _split_loss(outs, target, num_classes,
                                           num_offsets, alpha, criterion_cls,
                                           criterion_ofs)
@@ -351,10 +381,11 @@ def build_eval_step(num_classes, num_offsets, alpha=1.0,
     the model in eval mode.  metrics carries batch-mean scalars and
     per-sample (B,) vectors (`per_sample_*`, the criterion on each row)
     so callers that pad partial batches count real rows only.  With
-    `mesh`, each rank evaluates its shard and every rank gets the whole
+    `mesh`, each rank evaluates its block and every rank gets the whole
     batch's probabilities and metrics; with `local_batch` as well, the
-    inputs are this rank's shard and the probabilities and per-sample
-    vectors are its own (the scalars still the global means)."""
+    inputs are the slice of this rank's data index and the
+    probabilities and per-sample vectors are that slice's (the scalars
+    still the global means)."""
     mesh = _check(mesh)
     loss = functools.partial(_split_loss, num_classes=num_classes,
                              num_offsets=num_offsets, alpha=alpha,
@@ -365,7 +396,13 @@ def build_eval_step(num_classes, num_offsets, alpha=1.0,
     def step(state, img, target):
         dev = state.device
         target = _on(target, dev, mesh, local_batch)
-        outs = state.model.eval()(_on(img, dev, mesh, local_batch))
+        img = _on(img, dev, mesh, local_batch)
+        with spatial(mesh):
+            if mesh is not None:
+                img = as_rows(img, mesh)
+            outs = state.model.eval()(img)
+        outs, target = _matched(outs, target, mesh,
+                                (criterion_cls, criterion_ofs))
         total, cls_l, ofs_l = loss(outs, target)
         per_tot, per_cls, per_ofs = (torch.stack(v) for v in zip(
             *(loss(o, t) for o, t in zip(outs, target))))
@@ -373,9 +410,16 @@ def build_eval_step(num_classes, num_offsets, alpha=1.0,
         scalars = {"loss": total, "cls_loss": cls_l, "ofs_loss": ofs_l}
         rows = {"per_sample_loss": per_tot, "per_sample_cls": per_cls,
                 "per_sample_ofs": per_ofs}
-        if mesh is not None:
-            scalars = _global_mean(scalars, mesh)
-        if mesh is not None and not local_batch:
+        if mesh is None:
+            return probs, {**scalars, **rows}
+        scalars = _global_mean(scalars, mesh)
+        # a sample's loss: the mean of its equal row blocks' means
+        S = mesh.shape["spatial"]
+        rows = {k: all_reduce_(v, mesh.axis("spatial")) / S
+                for k, v in rows.items()}
+        if local_batch:
+            probs = plain(gather_rows(probs, mesh))
+        else:
             rows = {k: all_gather_batch(v, mesh) for k, v in rows.items()}
             probs = all_gather_batch(probs, mesh)
         return probs, {**scalars, **rows}

@@ -4,12 +4,14 @@ exact-mode overflow fallback (`mergenet_tpu/serving.py` is the
 reference).
 
 Frames of a batch run one after another on one `device`.  With a
-data-parallel `mesh` (`parallel.mesh.make_mesh`, one rank per card) the
-batch is sharded over its ranks, as the reference's `shard_map` shards
-it over the data axis: each rank serves its contiguous slice on its own
-card through the same single-card path (its own flagged frames
-included), and the masks, classes and overflow counts are all-gathered
-so that every rank returns the whole batch.
+`mesh` of any shape (`parallel.mesh.make_mesh`, one rank per card) the
+batch is sharded over its data axis, as the reference's `shard_map`
+with `P("data")` shards it: each rank serves the contiguous slice of
+its data index on its own card through the same single-card path (its
+own flagged frames included), ranks that share a data index (over the
+spatial and model axes) serve the same frames, replicated, and the
+masks, classes and overflow counts are all-gathered so that every rank
+returns the whole batch.
 
 Overflow fallback: `decode_hierarchical`'s capacities are budgets; an
 over-budget scene drops edges or pairs or freezes components (counted

@@ -5,6 +5,9 @@ card's decodes to:
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py     # (a), (b): ~5 min
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c   # (c): ~17 min
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c_jpeg  # ~3 min
+    JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c_exact_0_7  # 3 min
+    JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c_exact_0_7 \
+        --save-exact tests/fixtures/certification512
 
 Decodes each fixture with `decode_hierarchical` + `relabel_mask` (hier)
 and `run_segmentation_device`'s default exact mode at the served
@@ -31,8 +34,12 @@ keeps the regenerated images (default: a temporary directory).
 Procedure "c_jpeg" is (c) with the hier decode only, on the committed
 JPEG encodings of the same 50 images (`tests/fixtures/jpeg/val/`,
 quality 90, 4:2:0, written by `tests/make_jpeg_fixtures.py`), read with
-`cv2.imread` as the JAX package reads images.  Prints the dict that
-`JAX_AP` holds."""
+`cv2.imread` as the JAX package reads images.  Procedure
+"c_exact_0_7" is (c)'s exact column on val images 0-7 alone, scored
+over those 8 images (the images `chip_smoke.py` decodes exact in its
+(c) phase); `--save-exact DIR` writes each of their exact decodes to
+DIR/c_exact_<i>.npz (`mask`, `classes`), the masks `chip_smoke.py`
+holds the card's to.  Prints the dict that `JAX_AP` holds."""
 
 import argparse
 import contextlib
@@ -99,12 +106,15 @@ def _script(name, path):
     return mod
 
 
-def procedure_c(data_dir, decoders=("hier", "exact"), image_dir=None):
+def procedure_c(data_dir, decoders=("hier", "exact"), image_dir=None,
+                limit=None, save_exact=None):
     """{"hier": (AP, AP50), "exact": (AP, AP50), "overflow": {...},
     "times_s": {...}}: the JAX package on the 50 val images regenerated
     by the reference generator, scored as the certification script
     scores them.  `image_dir` reads each image from there instead, under
-    its name with `.jpg` (procedure "c_jpeg")."""
+    its name with `.jpg` (procedure "c_jpeg"); `limit` takes the first
+    `limit` val images and scores over them alone; `save_exact` is a
+    directory for the exact masks of val images 0-7."""
     import jax
     import jax.numpy as jnp
     import cv2
@@ -145,7 +155,8 @@ def procedure_c(data_dir, decoders=("hier", "exact"), image_dir=None):
     times = {k: 0.0 for k in ("net",) + tuple(decoders)}
     overflow = {"edges_dropped": 0, "pairs_dropped": 0, "n_frozen": 0}
     fixture_probs = []
-    for n, img_id in enumerate(sorted(coco.imgs)):
+    ids = sorted(coco.imgs)[:limit]
+    for n, img_id in enumerate(ids):
         fname = coco.loadImgs(img_id)[0]["file_name"]
         path = os.path.join(data_dir, "val", fname)
         if image_dir is not None:
@@ -183,12 +194,20 @@ def procedure_c(data_dir, decoders=("hier", "exact"), image_dir=None):
                 np.moveaxis(cp, -1, 0), np.moveaxis(sp, -1, 0), C, offsets,
                 **SERVE_KW)
             times["exact"] += time.time() - t0
+            if save_exact is not None and n < 8:
+                np.savez_compressed(
+                    os.path.join(save_exact, "c_exact_%d.npz" % n),
+                    mask=np.asarray(emask, np.int32),
+                    classes=np.asarray(ecls, np.int32))
             res["exact"] += cert.mask_to_results(emask, ecls, img_id)
         print("  (c) image %d/%d: %s so far" % (
-            n + 1, len(coco.imgs), ", ".join("%s %.1f s" % kv
-                                             for kv in times.items())),
+            n + 1, len(ids), ", ".join("%s %.1f s" % kv
+                                       for kv in times.items())),
             file=sys.stderr, flush=True)
-    out = {k: cert.coco_ap(coco, r) for k, r in res.items()}
+    if limit is None:
+        out = {k: cert.coco_ap(coco, r) for k, r in res.items()}
+    else:
+        out = {k: jax_ap(coco, r, ids) for k, r in res.items()}
     out["overflow"] = overflow
     out["times_s"] = times
     out["fixture_probs"] = fixture_probs
@@ -198,9 +217,12 @@ def procedure_c(data_dir, decoders=("hier", "exact"), image_dir=None):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("procedures", nargs="*", default=["a", "b"],
-                    choices=["a", "b", "c", "c_jpeg"])
+                    choices=["a", "b", "c", "c_jpeg", "c_exact_0_7"])
     ap.add_argument("--data", default=None,
                     help="directory for procedure (c)'s regenerated images")
+    ap.add_argument("--save-exact", default=None,
+                    help="directory for the exact masks of (c)'s val "
+                    "images 0-7 (c_exact_<i>.npz)")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import jax
@@ -222,11 +244,13 @@ def main():
         if "a" in args.procedures:
             out["a01"] = {"hier": jax_ap(coco,
                                          res["hier"][0] + res["hier"][1])}
-    for proc in ("c", "c_jpeg"):
+    for proc in ("c", "c_jpeg", "c_exact_0_7"):
         if proc not in args.procedures:
             continue
-        kw = {} if proc == "c" else dict(decoders=("hier",),
-                                         image_dir=JPEG_VAL)
+        kw = {"c": {}, "c_jpeg": dict(decoders=("hier",), image_dir=JPEG_VAL),
+              "c_exact_0_7": dict(decoders=("exact",), limit=8)}[proc]
+        if "exact" in kw.get("decoders", ("exact",)):
+            kw["save_exact"] = args.save_exact
         if args.data:
             out[proc] = procedure_c(args.data, **kw)
         else:

@@ -142,6 +142,40 @@ def test_score_equals_jax_package(data, cert, make):
         assert got["hier"][0] > 0.5 and got["exact"][0] > 0.5
 
 
+def test_score_cuts_exact_to_the_first_images(data):
+    """`exact_images=1` (chip_smoke.py's (c) phase keeps images 0-7)
+    decodes exact on the first val image only and scores it over that
+    image, as the JAX package's COCOeval does over the same image; hier
+    stays on every image; `on_exact` sees that one exact decode."""
+    import jax_certification_ap as jca
+
+    def keys(results):  # scoring adds `id`, `area`, `bbox`, `iscrowd`
+        return [(r["image_id"], r["category_id"], r["score"],
+                 r["segmentation"]["counts"]) for r in results]
+    full = CT.score(OracleNet(data), data, C, OFFSETS, ("hier", "exact"),
+                    device="cpu")
+    seen = []
+    cut = CT.score(OracleNet(data), data, C, OFFSETS, ("hier", "exact"),
+                   device="cpu", exact_images=1,
+                   on_exact=lambda *a: seen.append(a))
+    with contextlib.redirect_stdout(_io.StringIO()):
+        first = sorted(COCO(os.path.join(
+            data, "annotations", "instancesonly_val.json")).imgs)[0]
+        jcoco = JCOCO(os.path.join(data, "annotations",
+                                   "instancesonly_val.json"))
+    assert keys(cut["results"]["exact"]) == [
+        k for k in keys(full["results"]["exact"]) if k[0] == first]
+    assert cut["hier"] == full["hier"]
+    assert cut["exact"] == jca.jax_ap(jcoco, [
+        {k: r[k] for k in ("image_id", "category_id", "segmentation",
+                           "score")} for r in cut["results"]["exact"]],
+        [first])
+    assert cut["exact"][0] > 0.5
+    assert [(n, img_id) for n, img_id, _, _ in seen] == [(0, first)]
+    mask, classes = seen[0][2], seen[0][3]
+    assert np.asarray(mask).ndim == 2 and len(classes) >= 1
+
+
 def test_train_seed_one_epoch_writes_model_best(data, tmp_path):
     exp = str(tmp_path / "seed0")
     hist = CT.train_seed(exp, data, seed=0, num_classes=C, num_offsets=O,

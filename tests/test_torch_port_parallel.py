@@ -274,14 +274,22 @@ def test_checkpoint_barriers_rank0_writes_every_rank_loads(run):
 
 
 def test_meshes_the_port_cannot_run_are_refused():
-    with pytest.raises(NotImplementedError, match="data axis only"):
-        make_mesh(spatial=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="data axis only"):
-        make_mesh(model=2, device="cpu")
+    # spatial and model axes are accepted (tests/test_torch_port_spatial.py
+    # runs them on 4 ranks); axes that do not multiply to the world and a
+    # JAX mesh stay refused
     spatial = Mesh({"data": 1, "spatial": 2, "model": 1}, 0, 2,
                    torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="data axis only"):
-        check_mesh(spatial)
+    assert check_mesh(spatial) is spatial
+    model = Mesh({"data": 1, "spatial": 1, "model": 2}, 1, 2,
+                 torch.device("cpu"))
+    assert check_mesh(model) is model
+    with pytest.raises(ValueError, match="ranks"):
+        make_mesh(spatial=2, device="cpu")  # one process, no group
+    with pytest.raises(ValueError, match="ranks"):
+        make_mesh(model=2, device="cpu")
+    with pytest.raises(ValueError, match="world"):
+        check_mesh(Mesh({"data": 1, "spatial": 2, "model": 1}, 0, 4,
+                        torch.device("cpu")))
     with pytest.raises(TypeError, match="make_mesh"):
         TT.build_eval_step(C, O, mesh=jmake_mesh(data=1,
                                                  devices=jax.devices()[:1]))

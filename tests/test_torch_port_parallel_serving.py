@@ -15,7 +15,9 @@ serves frames 0-3, the other 4-7:
   that noise overflows 256 components): the counts, and the masks after
   each rank re-decodes its own flagged frames with the exact mode;
 - `build_sharded_forward` within 1e-5 of JAX's on the data mesh;
-- a spatial axis above 1 refused (`test_torch_port_parallel.py`)."""
+- a spatial axis accepted when the sharded forward and serving are
+  built (`test_torch_port_spatial.py` runs them), a mesh whose axes do
+  not multiply to its world and a JAX mesh refused."""
 
 import copy
 
@@ -111,11 +113,22 @@ def test_sharded_forward_matches_jax(run):
 
 
 def test_sharded_forward_refuses_a_spatial_axis(run):
+    # a spatial axis is accepted (tests/test_torch_port_spatial.py serves
+    # and forwards on one); a mesh whose axes do not multiply to its
+    # world and a JAX mesh are refused
     model = load_flax_weights(UNet(C, len(OFFSETS), depth=2, start_filts=8),
                               run["params"], run["stats"])
     spatial = Mesh({"data": 1, "spatial": 2, "model": 1}, 0, 2,
                    torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="data axis only"):
-        build_sharded_forward(model, spatial)
-    with pytest.raises(NotImplementedError, match="data axis only"):
-        build_serving_pipeline(model, C, OFFSETS, mesh=spatial)
+    assert build_sharded_forward(model, spatial).model is not model
+    assert build_serving_pipeline(model, C, OFFSETS,
+                                  mesh=spatial).model is not model
+    bad = Mesh({"data": 1, "spatial": 2, "model": 1}, 0, 4,
+               torch.device("cpu"))
+    with pytest.raises(ValueError, match="world"):
+        build_sharded_forward(model, bad)
+    with pytest.raises(ValueError, match="world"):
+        build_serving_pipeline(model, C, OFFSETS, mesh=bad)
+    with pytest.raises(TypeError, match="make_mesh"):
+        build_serving_pipeline(model, C, OFFSETS, mesh=jmake_mesh(
+            data=1, devices=jax.devices()[:1]))

@@ -465,9 +465,11 @@ def test_sample_pngs_and_scalar_log(unet_ref, tmp_path, monkeypatch):
 
 def test_entry_points_need_the_card_and_refuse_unported_options():
     """No fallback: the default device is CUDA, which this machine lacks.
-    The steps take the port's data-parallel `Mesh` only (a JAX mesh or
-    any other object is a TypeError), and no spatial or model axis
-    above 1 (`test_torch_port_parallel.py` runs the data axis)."""
+    The steps take the port's `Mesh` only (a JAX mesh or any other
+    object is a TypeError), of any shape whose axes multiply to its world
+    (`test_torch_port_parallel.py` runs the data axis,
+    `test_torch_port_spatial.py` the spatial and model axes); other
+    shapes are a ValueError."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -477,8 +479,12 @@ def test_entry_points_need_the_card_and_refuse_unported_options():
         TT.build_train_step(C, O, mesh=object())
     spatial = Mesh({"data": 1, "spatial": 2, "model": 1}, 0, 2,
                    torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="data axis only"):
-        TT.build_train_step_compact(C, SPIRAL_OFFSETS, mesh=spatial)
+    assert callable(TT.build_train_step_compact(C, SPIRAL_OFFSETS,
+                                                mesh=spatial))
+    with pytest.raises(ValueError, match="world"):
+        TT.build_train_step_compact(C, SPIRAL_OFFSETS, mesh=Mesh(
+            {"data": 1, "spatial": 2, "model": 1}, 0, 4,
+            torch.device("cpu")))
 
 
 # ------------------------------------------------ PSPFPNet compact step

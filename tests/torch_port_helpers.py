@@ -107,7 +107,9 @@ def cuda_device():
 #: images regenerated by the reference generator, hier and exact decodes
 #: of its float32 maps, every val image scored (zero overflow); "c_jpeg"
 #: is (c)'s hier decode on the committed JPEGs of those images
-#: (tests/fixtures/jpeg/val/, quality 90, 4:2:0) read with cv2.imread
+#: (tests/fixtures/jpeg/val/, quality 90, 4:2:0) read with cv2.imread;
+#: "c_exact_0_7" is (c)'s exact column on val images 0-7, scored over
+#: them (`tests/jax_certification_ap.py c_exact_0_7`)
 JAX_AP = {"a": {"hier": (0.09725247524752474, 0.11262376237623763),
                 "exact": (0.09628712871287129, 0.11633663366336634),
                 "cpp": (0.0927062706270627, 0.11633663366336634)},
@@ -117,7 +119,9 @@ JAX_AP = {"a": {"hier": (0.09725247524752474, 0.11262376237623763),
           "a01": {"hier": (0.02524752475247525, 0.028465346534653466)},
           "c": {"hier": (0.6920563049981829, 0.8145283278327833),
                 "exact": (0.6562437697688676, 0.8091715064363579)},
-          "c_jpeg": {"hier": (0.6876531846190053, 0.8105060506050605)}}
+          "c_jpeg": {"hier": (0.6876531846190053, 0.8105060506050605)},
+          "c_exact_0_7": {"exact": (0.7355486798679868,
+                                    0.8985148514851485)}}
 
 
 def coco_stats(coco, results, img_ids=None, cocoeval=None):
@@ -245,14 +249,25 @@ def spawn_ranks(worker, world, tmp_dir, payload):
     under `tmp_dir`, no ports), one torch thread each; returns each
     rank's result (what `worker` returned, through torch.save) in rank
     order."""
+    return start_ranks(worker, world, tmp_dir, payload)()
+
+
+def start_ranks(worker, world, tmp_dir, payload):
+    """`spawn_ranks` without waiting: starts the ranks and returns
+    join() -> each rank's result, so the caller works meanwhile."""
     import torch
     import torch.multiprocessing as mp
     with open(os.path.join(tmp_dir, "payload.pt"), "wb") as f:
         torch.save(payload, f)
-    mp.spawn(_rank_main, args=(world, str(tmp_dir), worker), nprocs=world,
-             join=True)
-    return [torch.load(os.path.join(tmp_dir, "rank%d.pt" % r),
-                       weights_only=False) for r in range(world)]
+    ctx = mp.spawn(_rank_main, args=(world, str(tmp_dir), worker),
+                   nprocs=world, join=False)
+
+    def join():
+        while not ctx.join():
+            pass
+        return [torch.load(os.path.join(tmp_dir, "rank%d.pt" % r),
+                           weights_only=False) for r in range(world)]
+    return join
 
 
 def _rank_main(rank, world, tmp_dir, worker):
