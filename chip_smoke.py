@@ -49,7 +49,10 @@ after:
   generator (`data/synthetic.py`), held equal to the committed val json
   and bench images;
 - JPEG reading: the port's decoder (`data/jpeg.py`, host C++ built
-  with g++) on the committed JPEGs against cv2's digests, procedure
+  with g++) on the committed JPEGs (arithmetic-coded, lossless, CMYK
+  and YCCK files among them) and an Adam7 PNG against cv2's digests,
+  the arithmetic transcodings against their Huffman files (and timed
+  against them and the CMYK file), procedure
   (c)'s hier column scored from the q90 JPEGs of the 50 val images
   (floodscan, absorb, tgather) against the JAX package's AP on the same
   files, the images that scoring read held to cv2's digests, and the
@@ -331,6 +334,10 @@ SPATIAL_F64_TOL = 1e-9
 SPATIAL_FRAME, SPATIAL_DECODE = (1024, 2048), (512, 1024)
 SPATIAL_TIMEOUT_S = 150
 SPATIAL_MAX_S = 60  # the phase's budget within the run
+# jpeg phase: decodes of each arithmetic transcoding, its Huffman source
+# and of JPEG_CMYK for their ms per 512x1024 image
+JPEG_REPS = 5
+JPEG_CMYK = "matrix/cmyk_444.jpg"
 
 
 def phase(name):
@@ -1414,10 +1421,41 @@ def data_phase(smi, sw):
     return out, data_dir
 
 
-def jpeg_phase(drive, paths, smi, sw, data_dir):
-    """JPEG reading (`data/jpeg.py`, host C++ built with g++ here): every
-    committed file of tests/fixtures/jpeg decoded and held to cv2's
-    SHA-256 (`cv2_digests.json`); procedure (c)'s hier column scored
+def start_jpeg_build():
+    """The JPEG decoder's g++ build (`data/native/jpeg.cc`) in a thread,
+    started once the kernels' nvcc build is done, so that it runs beside
+    the card phases that follow; returns (thread, result dict), which the
+    jpeg phase joins (the dict holds build_s, None when the library was
+    already built, or the error)."""
+    import threading
+
+    from mergenet_tpu_torch.data import jpeg
+    result = {}
+
+    def run():
+        try:
+            built = not os.path.exists(jpeg.library_path())
+            t0 = time.perf_counter()
+            jpeg.build()
+            result["build_s"] = time.perf_counter() - t0 if built else None
+        except BaseException as e:  # re-raised by the jpeg phase
+            result["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, result
+
+
+def jpeg_phase(drive, paths, smi, sw, data_dir, build=None):
+    """JPEG reading (`data/jpeg.py`, host C++ built with g++ by
+    `start_jpeg_build`, after the nvcc build, or here): every
+    committed file of tests/fixtures/jpeg (JPEGs: baseline to
+    progressive, arithmetic-coded, lossless, CMYK and YCCK; an Adam7
+    PNG through `io.read_png_rgb`) decoded and held to cv2's SHA-256
+    (`cv2_digests.json`); the arithmetic transcodings held equal to the
+    Huffman files they came from, and timed against them per 512x1024
+    image with the CMYK file (JPEG_REPS decodes each, in turns);
+    procedure (c)'s hier column scored
     from the 50 committed q90 JPEGs of the val images (`certify.score`
     on the card: floodscan, absorb and tgather once per image), AP and
     AP50 gated within CERT_JAX_AP_TOL of JAX's `c_jpeg` figure and every
@@ -1432,6 +1470,8 @@ def jpeg_phase(drive, paths, smi, sw, data_dir):
     import json
     import shutil
 
+    import numpy as np
+
     from mergenet_tpu_torch import certify as CT
     from mergenet_tpu_torch import io
     from mergenet_tpu_torch.data import COCODataset, DataLoader, imgproc, jpeg
@@ -1440,38 +1480,83 @@ def jpeg_phase(drive, paths, smi, sw, data_dir):
     fixj = os.path.join(HERE, "tests", "fixtures", "jpeg")
     with open(os.path.join(fixj, "cv2_digests.json")) as f:
         digests = json.load(f)
-    built = not os.path.exists(jpeg.library_path())
-    with sw.span("jpeg build"):
-        jpeg.build()
-    build_s = sw.totals["jpeg build"] if built else None
+    thread, built = build or start_jpeg_build()
+    with sw.span("jpeg build"):  # the wait for the build, if it still runs
+        thread.join()
+    if "error" in built:
+        raise built["error"]
+    build_s = built["build_s"]
     blobs = {}
     for rel in digests:
         with open(os.path.join(fixj, rel), "rb") as f:
             blobs[rel] = f.read()
     jpeg.decode_jpeg(blobs["val/val_00000.jpg"])  # load the library
+
+    def read(rel):
+        if rel.endswith(".png"):
+            return io.read_png_rgb(os.path.join(fixj, rel))
+        return jpeg.decode_jpeg(blobs[rel], rel)
+
+    fixtures_t0 = time.perf_counter()
     wrong = []
     val_s = 0.0
-    for rel, data in blobs.items():
+    decoded = {}
+    pairs = {rel: d["transcoded_from"] for rel, d in digests.items()
+             if "transcoded_from" in d}
+    for rel in blobs:
         t0 = time.perf_counter()
-        img = jpeg.decode_jpeg(data, rel)
+        img = read(rel)
         dt = time.perf_counter() - t0
         if rel.startswith("val/"):
             val_s += dt
         if [list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()] \
                 != [digests[rel]["shape"], digests[rel]["sha256"]]:
             wrong.append(rel)
+        if rel in pairs or rel in pairs.values():
+            decoded[rel] = img
     val = sorted(r for r in blobs if r.startswith("val/"))
     val_bytes = sum(len(blobs[r]) for r in val)
     ms_img = val_s / len(val) * 1e3
     mb_s = val_bytes / val_s / 1e6
-    print("  decoder %s; %d files decoded, %d differ from cv2's digest; "
-          "512x1024 q90 4:2:0: %.3f ms per image, %.2f MB/s of JPEG, %.2f "
-          "Mpixel/s (host, %s)" % (
-              "built in %.2f s (g++)" % build_s if built else "cached",
-              len(blobs), len(wrong), ms_img, mb_s,
+    print("  decoder %s (g++, after the nvcc build; %.2f s waited here); "
+          "%d files decoded, %d differ from cv2's digest; 512x1024 q90 "
+          "4:2:0: %.3f ms per image, %.2f MB/s of JPEG, %.2f Mpixel/s "
+          "(host, %s)" % (
+              "cached" if build_s is None else "built in %.2f s" % build_s,
+              sw.totals["jpeg build"], len(blobs), len(wrong), ms_img, mb_s,
               512 * 1024 * len(val) / val_s / 1e6, smi), flush=True)
     if wrong:
         raise AssertionError("JPEG decodes differ from cv2's: %s" % wrong)
+    unequal = [rel for rel, src in pairs.items()
+               if not np.array_equal(decoded[rel], decoded[src])]
+    if not pairs or unequal:
+        raise AssertionError("arithmetic transcodings differ from their "
+                             "Huffman files: %s of %s" % (unequal, pairs))
+    # ms per 512x1024 image: each transcoding, its Huffman source and the
+    # CMYK file, decoded JPEG_REPS times in turns (host)
+    timed = sorted(set(pairs) | set(pairs.values()) | {JPEG_CMYK})
+    spent = dict.fromkeys(timed, 0.0)
+    for _ in range(JPEG_REPS):
+        for rel in timed:
+            t0 = time.perf_counter()
+            jpeg.decode_jpeg(blobs[rel], rel)
+            spent[rel] += time.perf_counter() - t0
+    per = {rel: spent[rel] / JPEG_REPS * 1e3 for rel in timed}
+    fixtures_s = time.perf_counter() - fixtures_t0
+    coding_ms = {
+        "arith_seq": [per[r] for r in sorted(pairs) if "_seq" in r],
+        "arith_prog": [per[r] for r in sorted(pairs) if "_prog" in r],
+        "huffman_sources": [per[s] for s in sorted(set(pairs.values()))],
+        "cmyk_444": per[JPEG_CMYK]}
+    print("  arithmetic transcodings equal to their Huffman files (%d); ms "
+          "per 512x1024 image, %d decodes each (host, %s): arithmetic "
+          "sequential %s, progressive %s; their Huffman sources %s; CMYK "
+          "4:4:4 %.3f; the fixtures' decodes and timing %.2f s" % (
+              len(pairs), JPEG_REPS, smi,
+              " ".join("%.3f" % v for v in coding_ms["arith_seq"]),
+              " ".join("%.3f" % v for v in coding_ms["arith_prog"]),
+              " ".join("%.3f" % v for v in coding_ms["huffman_sources"]),
+              coding_ms["cmyk_444"], fixtures_s), flush=True)
 
     jdir = os.path.join(HERE, "mergenet_tpu_torch", "_build", "jpeg_data")
     shutil.rmtree(jdir, ignore_errors=True)
@@ -1585,6 +1670,8 @@ def jpeg_phase(drive, paths, smi, sw, data_dir):
     if failed:
         raise AssertionError("jpeg gates failed: %s" % failed)
     return {"files": len(blobs), "differ": wrong,
+            "transcodings_equal_huffman": pairs,
+            "coding_ms_per_512x1024": coding_ms, "fixtures_s": fixtures_s,
             "build_s": build_s,
             "decode_ms_per_512x1024": ms_img, "decode_mb_per_s": mb_s,
             "ap": ap, "jax_ap": jref, "png_jax_ap": png,
@@ -2952,6 +3039,7 @@ def main():
 
     if "--cards" in sys.argv[1:]:
         return spatial_cards(smi, kind)
+    jpeg_build = start_jpeg_build()  # beside the card phases below
 
     # ---- 3. kernels against their plain versions, at the slice's shapes --
     phase("kernels vs plain versions")
@@ -3535,7 +3623,7 @@ def main():
     print("data " + json.dumps({"card": smi, **data}), flush=True)
     phase("jpeg: the committed JPEGs against cv2's digests, (c) hier from "
           "the q90 JPEGs of the 50 val images, the coco loader on JPEG/PNG")
-    jpeg_r = jpeg_phase(drive, paths, smi, sw, data_dir)
+    jpeg_r = jpeg_phase(drive, paths, smi, sw, data_dir, jpeg_build)
     print("jpeg " + json.dumps({"card": smi, **jpeg_r}), flush=True)
     phase("converter: a gtFine tree of the 50 val images -> the "
           "prepare_data.sh twin -> masks and hier AP on the converted json")

@@ -59,12 +59,14 @@ _XY_SHIFT = 16
 def imread_rgb(path):
     """(H, W, 3) uint8 RGB of an image file, as `cv2.imread(path)` then
     `cv2.cvtColor(img, cv2.COLOR_BGR2RGB)` give it.  PNG of any colour
-    type: grey and palette images are expanded, alpha is dropped, 16-bit
-    samples keep their high byte.  JPEG (`jpeg.decode_jpeg`): baseline,
-    extended-sequential and progressive Huffman, grey or 3 components,
-    EXIF orientation applied.  Other formats, and the JPEG processes the
-    decoder does not take (arithmetic, lossless, 12-bit, CMYK), raise
-    ValueError naming them."""
+    type and bit depth, non-interlaced or Adam7: grey and palette images
+    are expanded, alpha is dropped, 16-bit samples keep their high byte.
+    JPEG (`jpeg.decode_jpeg`): every file cv2 reads (Huffman or
+    arithmetic coding, sequential, progressive or lossless; grey, YCbCr,
+    RGB, CMYK or YCCK), EXIF orientation applied.  Other formats, and
+    the JPEGs cv2 refuses too (12-bit, 2 components, lossless grey or
+    YCbCr, hierarchical), raise ValueError naming the file and the
+    cause, as does truncated or corrupt data."""
     with open(path, "rb") as f:
         head = f.read(8)
     if head[:3] == b"\xff\xd8\xff":

@@ -5,10 +5,15 @@ The reference reads images with `cv2.imread` (`mergenet_tpu/data/
 dataset.py:190`, `:343`, `grain_pipeline.py:54`), whose libjpeg-turbo
 decodes JPEG files; the GPU machine has no cv2, PIL or libjpeg.
 `decode_jpeg` returns what `cv2.imdecode` then `cv2.cvtColor(img,
-cv2.COLOR_BGR2RGB)` return for baseline, extended-sequential and
-progressive Huffman JPEGs with 1 or 3 components, bit for bit, the EXIF
-orientation applied as cv2 applies it.  `native/jpeg.cc`'s header says
-which of libjpeg-turbo's computations it follows and what it refuses.
+cv2.COLOR_BGR2RGB)` return, bit for bit, the EXIF orientation applied as
+cv2 applies it, for every JPEG cv2 reads: baseline, extended-sequential
+and progressive, Huffman- or arithmetic-coded, with 8-bit samples;
+lossless Huffman (RGB or CMYK, 2- to 8-bit samples); grey, YCbCr, RGB,
+and 4-component Adobe CMYK or YCCK.  What cv2 refuses (12-bit samples,
+2 components, lossless files that need a colour conversion, lossless
+arithmetic coding, hierarchical files) raises, as do truncated and
+corrupt data.  `native/jpeg.cc`'s header says which of libjpeg-turbo's
+computations it follows, and holds the table of what cv2 reads.
 
 The shared library is built with g++ at the first call, never at import,
 into `mergenet_tpu_torch/_build/` by `_host_build.build` (named by a

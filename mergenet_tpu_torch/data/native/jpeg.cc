@@ -1,7 +1,9 @@
 // JPEG decoding for the port's image reader (`data/jpeg.py`), written
-// from ITU-T T.81: the baseline and extended-sequential Huffman processes
-// (SOF0, SOF1) and the progressive Huffman process (SOF2), 8-bit samples,
-// 1 or 3 components, sampling factors 1-4, restart intervals.
+// from ITU-T T.81: the Huffman and arithmetic-coded DCT processes
+// (baseline and extended sequential, SOF0, SOF1, SOF9; progressive,
+// SOF2, SOF10) with 8-bit samples, and the lossless Huffman process
+// (SOF3, Annex H) with 2- to 8-bit samples; 1, 3 or 4 components,
+// sampling factors 1-4, restart intervals.
 //
 // It produces, bit for bit, what libjpeg-turbo 3.1 produces for
 // `cv2.imread` on x86-64 (islow inverse DCT, fancy upsampling, output in
@@ -16,23 +18,68 @@
 //   values past +-512).  A block whose rows 1-7 are all zero skips the
 //   column pass: its row 0 is dequantised and shifted left by 2 at 16
 //   bits.  The two agree wherever nothing overflows.
+// - The arithmetic decoder is T.81 Annex D.2's (the QM coder with Table
+//   D.2's estimates), with F.2.4's sequential and G.2's progressive
+//   procedures, statistics areas of 64 DC and 256 AC bins per table,
+//   DAC conditioning (L, U, Kx), signs and refinement bits on a fixed
+//   0.5 estimate, and every statistics area and prediction reset at a
+//   scan's start and at each restart marker, as libjpeg's jdarith.c.
+//   Hitting a marker inside arithmetic-coded data is legal: zero bytes
+//   are supplied from there on.
+// - Lossless (Annex H): predictors 1-7 on the point-transformed
+//   samples modulo 2^16, the first row of a scan and of each restart
+//   interval predicted from its left neighbour (its first sample from
+//   2^(P - Pt - 1)), the first column from above; restart intervals are
+//   whole MCU rows.  As libjpeg's jddiffct.c, the rows of an iMCU row
+//   are undifferenced after all of them are decoded, so a restart inside
+//   one (a non-interleaved scan of a component with v > 1) makes its
+//   first row, not the restart's, the 1-D row.  The output sample is
+//   the undifferenced value shifted left by Pt, cut to 8 bits: 2- to
+//   7-bit samples come out unscaled, as cv2 returns them.
 // - Upsampling follows jinit_upsampler: h2v1 and h2v2 "fancy" triangle
 //   filters (biases 1/2 and 8/7) when the downsampled width is > 2, the
 //   h1v2 triangle filter (biases 1/2), replication otherwise; edges are
-//   replicated (first and last column, top and bottom rows).
-// - Colour: jdcolor.c's YCbCr tables (SCALEBITS 16), YCbCr or RGB chosen
-//   from the JFIF marker, the Adobe transform flag and the component ids
-//   as default_decompress_parms chooses; grey is replicated.
+//   replicated (first and last column, top and bottom rows).  Lossless
+//   images are upsampled by replication (no fancy filter on 1x1 data
+//   units).
+// - Colour: jdcolor.c's YCbCr tables (SCALEBITS 16), the colour space
+//   chosen at the first scan as default_decompress_parms chooses it: 3
+//   components are YCbCr or RGB by the JFIF marker, the Adobe transform
+//   flag and the component ids; 4 are CMYK, or YCCK when an Adobe marker
+//   has a transform other than 0.  YCCK becomes CMYK as
+//   ycck_cmyk_convert does (YCbCr -> RGB unclamped, 255 minus it,
+//   clamped; K kept); CMYK becomes RGB as OpenCV's
+//   icvCvt_CMYK2BGR_8u_C4C3R does: R = K - ((255 - C) * K >> 8), G and B
+//   from M and Y alike.  Grey is replicated.  Lossless mode converts no
+//   colour: only RGB and CMYK lossless files are read in colour.
 // - Quantisation tables are latched at a component's first scan; missing
 //   Huffman tables 0 and 1 take T.81 Annex K's tables at the first scan.
 //
-// Anything else raises: arithmetic coding, lossless and hierarchical
-// processes, 12-bit samples, 2 or 4 components, fractional sampling
-// ratios, and corrupt or truncated data (a bad Huffman code, entropy data
-// that runs past its segment, a missing restart marker, a progressive
-// image whose scans stop before every coefficient is complete).  Bytes
-// between the end of a scan and the next marker are skipped, as libjpeg
-// skips them.
+// What `cv2.imread` (libjpeg-turbo 3.1.2 in OpenCV 5.0) returns, measured
+// on files written by tests/jpeg_craft.py, and what this decoder does:
+//
+//   file                                     cv2.imread (colour)
+//   SOF9 / SOF10 arithmetic, default and     (H, W, 3) uint8, equal to
+//     DAC tables, with and without restarts  the Huffman file's decode
+//   SOF3 lossless RGB (Adobe 0 or ids R G B),(H, W, 3) uint8: the samples
+//     predictors 1-7, Pt 0..P-1, P 2-8,      << Pt, unscaled below 8
+//     restarts of whole MCU rows, 2x2/2x1    bits; replicated upsampling
+//   SOF3 lossless CMYK (4 components)        CMYK -> BGR as above
+//   SOF3 grey, YCbCr or YCCK; P 9-16;        None (refused)
+//     restarts not whole rows; predictor 0
+//   SOF11 (lossless arithmetic)              None
+//   12-bit SOF1, SOF2, SOF9, SOF10           None
+//   4 components, Adobe 0 / none / 2 / 1,    (H, W, 3) uint8: CMYK,
+//     1x1 and 2x2 sampling                   CMYK, YCCK, YCCK
+//   2 components                             None
+//
+// Anything cv2 refuses raises here, and so do hierarchical processes,
+// fractional sampling ratios, and corrupt or truncated data (a bad
+// Huffman or arithmetic code, entropy data that runs past its segment or
+// past the end of the file, a missing restart marker, a progressive
+// image whose scans stop before every coefficient is complete), where
+// libjpeg warns and cv2 returns what it decoded.  Bytes between the end
+// of a scan and the next marker are skipped, as libjpeg skips them.
 //
 // C interface: mn_jpeg_decode fills a malloc'd (H, W, 3) RGB buffer that
 // mn_jpeg_free releases, and reports the EXIF orientation (1-8, 0 when
@@ -116,6 +163,55 @@ const uint8_t kStdAcChroma[162] = {
     0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
+// T.81 Table D.2: the QM coder's probability estimates, per state Qe,
+// Next_Index_LPS, Next_Index_MPS and Switch_MPS.  State 113 is a fixed
+// estimate of 0.5 (T.851), the bin libjpeg decodes signs and refinement
+// bits with.
+struct QeState {
+  uint16_t qe;
+  uint8_t nlps, nmps, sw;
+};
+const QeState kQe[114] = {
+    {0x5a1d, 1, 1, 1},    {0x2586, 14, 2, 0},   {0x1114, 16, 3, 0},
+    {0x080b, 18, 4, 0},   {0x03d8, 20, 5, 0},   {0x01da, 23, 6, 0},
+    {0x00e5, 25, 7, 0},   {0x006f, 28, 8, 0},   {0x0036, 30, 9, 0},
+    {0x001a, 33, 10, 0},  {0x000d, 35, 11, 0},  {0x0006, 9, 12, 0},
+    {0x0003, 10, 13, 0},  {0x0001, 12, 13, 0},  {0x5a7f, 15, 15, 1},
+    {0x3f25, 36, 16, 0},  {0x2cf2, 38, 17, 0},  {0x207c, 39, 18, 0},
+    {0x17b9, 40, 19, 0},  {0x1182, 42, 20, 0},  {0x0cef, 43, 21, 0},
+    {0x09a1, 45, 22, 0},  {0x072f, 46, 23, 0},  {0x055c, 48, 24, 0},
+    {0x0406, 49, 25, 0},  {0x0303, 51, 26, 0},  {0x0240, 52, 27, 0},
+    {0x01b1, 54, 28, 0},  {0x0144, 56, 29, 0},  {0x00f5, 57, 30, 0},
+    {0x00b7, 59, 31, 0},  {0x008a, 60, 32, 0},  {0x0068, 62, 33, 0},
+    {0x004e, 63, 34, 0},  {0x003b, 32, 35, 0},  {0x002c, 33, 9, 0},
+    {0x5ae1, 37, 37, 1},  {0x484c, 64, 38, 0},  {0x3a0d, 65, 39, 0},
+    {0x2ef1, 67, 40, 0},  {0x261f, 68, 41, 0},  {0x1f33, 69, 42, 0},
+    {0x19a8, 70, 43, 0},  {0x1518, 72, 44, 0},  {0x1177, 73, 45, 0},
+    {0x0e74, 74, 46, 0},  {0x0bfb, 75, 47, 0},  {0x09f8, 77, 48, 0},
+    {0x0861, 78, 49, 0},  {0x0706, 79, 50, 0},  {0x05cd, 48, 51, 0},
+    {0x04de, 50, 52, 0},  {0x040f, 50, 53, 0},  {0x0363, 51, 54, 0},
+    {0x02d4, 52, 55, 0},  {0x025c, 53, 56, 0},  {0x01f8, 54, 57, 0},
+    {0x01a4, 55, 58, 0},  {0x0160, 56, 59, 0},  {0x0125, 57, 60, 0},
+    {0x00f6, 58, 61, 0},  {0x00cb, 59, 62, 0},  {0x00ab, 61, 63, 0},
+    {0x008f, 61, 32, 0},  {0x5b12, 65, 65, 1},  {0x4d04, 80, 66, 0},
+    {0x412c, 81, 67, 0},  {0x37d8, 82, 68, 0},  {0x2fe8, 83, 69, 0},
+    {0x293c, 84, 70, 0},  {0x2379, 86, 71, 0},  {0x1edf, 87, 72, 0},
+    {0x1aa9, 87, 73, 0},  {0x174e, 72, 74, 0},  {0x1424, 72, 75, 0},
+    {0x119c, 74, 76, 0},  {0x0f6b, 74, 77, 0},  {0x0d51, 75, 78, 0},
+    {0x0bb6, 77, 79, 0},  {0x0a40, 77, 48, 0},  {0x5832, 80, 81, 1},
+    {0x4d1c, 88, 82, 0},  {0x438e, 89, 83, 0},  {0x3bdd, 90, 84, 0},
+    {0x34ee, 91, 85, 0},  {0x2eae, 92, 86, 0},  {0x299a, 93, 87, 0},
+    {0x2516, 86, 71, 0},  {0x5570, 88, 89, 1},  {0x4ca9, 95, 90, 0},
+    {0x44d9, 96, 91, 0},  {0x3e22, 97, 92, 0},  {0x3824, 99, 93, 0},
+    {0x32b4, 99, 94, 0},  {0x2e17, 93, 86, 0},  {0x56a8, 95, 96, 1},
+    {0x4f46, 101, 97, 0}, {0x47e5, 102, 98, 0}, {0x41cf, 103, 99, 0},
+    {0x3c3d, 104, 100, 0}, {0x375e, 99, 93, 0}, {0x5231, 105, 102, 0},
+    {0x4c0f, 106, 103, 0}, {0x4639, 107, 104, 0}, {0x415e, 103, 99, 0},
+    {0x5627, 105, 106, 1}, {0x50e7, 108, 107, 0}, {0x4b85, 109, 103, 0},
+    {0x5597, 110, 109, 0}, {0x504f, 111, 107, 0}, {0x5a10, 110, 111, 1},
+    {0x5522, 112, 109, 0}, {0x59eb, 112, 111, 1}, {0x5a1d, 113, 113, 0}};
+constexpr uint8_t kFixedBin = 113;
+
 constexpr int kLookBits = 9;
 
 // A table ready for decoding: canonical codes (jpeg_make_d_derived_tbl)
@@ -127,7 +223,9 @@ struct Huff {
   uint16_t look[1 << kLookBits];  // (length << 8) | symbol; 0: longer
 };
 
-void derive(const HuffSpec& s, bool dc, Huff* h) {
+// `max_sym`: the largest symbol a DC table may hold (15, or 16 for the
+// lossless difference categories); -1 for an AC table.
+void derive(const HuffSpec& s, int max_sym, Huff* h) {
   if (!s.defined) fail("Huffman table not defined");
   int size[257];
   int p = 0;
@@ -168,9 +266,9 @@ void derive(const HuffSpec& s, bool dc, Huff* h) {
     for (int j = 0; j < (1 << shift); j++)
       h->look[base + j] = (uint16_t)((size[i] << 8) | s.vals[i]);
   }
-  if (dc)
+  if (max_sym >= 0)
     for (int i = 0; i < n; i++)
-      if (s.vals[i] > 15) fail("bad Huffman table");
+      if (s.vals[i] > max_sym) fail("bad Huffman table");
 }
 
 struct Component {
@@ -184,6 +282,9 @@ struct Component {
   int coef_bits[64];   // progressive: last Al per coefficient, -1 none
   std::vector<int16_t> coef;  // ph * pw blocks of 64, natural order
   std::vector<uint8_t> plane;  // bh*8 rows of bw*8 samples after IDCT
+  // lossless: the differences of one iMCU row (v rows of the MCU grid's
+  // width) and the last undifferenced row
+  std::vector<int32_t> diff, prev;
   int16_t* block(int r, int c) { return &coef[((size_t)r * pw + c) * 64]; }
 };
 
@@ -257,6 +358,10 @@ void idct_block(const int16_t* coef, const int16_t* q, uint8_t* dst,
   }
 }
 
+// Colour spaces, as default_decompress_parms names them.
+enum Space { kGrey, kYCbCr, kRGB, kCMYK, kYCCK };
+const char* const kSpaceName[] = {"grey", "YCbCr", "RGB", "CMYK", "YCCK"};
+
 class Decoder {
  public:
   Decoder(const uint8_t* d, size_t n) : d_(d), n_(n) {}
@@ -283,16 +388,16 @@ class Decoder {
       const size_t sl = len - 2;
       p += len;
       switch (m) {
-        case 0xC0: case 0xC1: case 0xC2:
+        case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
           read_sof(m, s, sl, n_ - p);
           break;
-        case 0xC3: fail("lossless JPEG (SOF3) is not supported");
+        case 0xCB:
+          fail("lossless arithmetic-coded JPEG (SOF11) is not supported");
         case 0xC5: case 0xC6: case 0xC7: case 0xCD: case 0xCE: case 0xCF:
           fail("hierarchical JPEG (SOF%d) is not supported", m - 0xC0);
-        case 0xC9: case 0xCA: case 0xCB:
-          fail("arithmetic-coded JPEG (SOF%d) is not supported", m - 0xC0);
         case 0xC4: read_dht(s, sl); break;
         case 0xDB: read_dqt(s, sl); break;
+        case 0xCC: read_dac(s, sl); break;
         case 0xDD:
           if (sl != 2) fail("bad DRI marker length");
           restart_interval_ = (s[0] << 8) | s[1];
@@ -313,7 +418,7 @@ class Decoder {
             adobe_transform_ = s[11];
           }
           break;
-        case 0xCC: case 0xDC: case 0xFE:  // DAC, DNL, COM
+        case 0xDC: case 0xFE:  // DNL, COM
           break;
         default:
           if (m >= 0xE0 && m <= 0xEF) break;  // other APPn
@@ -348,15 +453,25 @@ class Decoder {
   void read_sof(int m, const uint8_t* s, size_t sl, size_t rest) {
     if (sof_) fail("duplicate SOF marker");
     sof_ = true;
-    progressive_ = m == 0xC2;
+    progressive_ = m == 0xC2 || m == 0xCA;
+    arith_ = m == 0xC9 || m == 0xCA;
+    lossless_ = m == 0xC3;
     if (sl < 6) fail("bad SOF marker length");
-    if (s[0] == 12) fail("12-bit JPEG is not supported");
-    if (s[0] != 8) fail("unsupported JPEG sample precision %d", s[0]);
+    precision_ = s[0];
+    if (lossless_) {
+      if (precision_ > 8 && precision_ <= 16)
+        fail("%d-bit lossless JPEG is not supported", precision_);
+      if (precision_ < 2 || precision_ > 16)
+        fail("unsupported JPEG sample precision %d", precision_);
+    } else {
+      if (precision_ == 12) fail("12-bit JPEG is not supported");
+      if (precision_ != 8)
+        fail("unsupported JPEG sample precision %d", precision_);
+    }
     H = (s[1] << 8) | s[2];
     W = (s[3] << 8) | s[4];
     const int nc = s[5];
-    if (nc == 4) fail("4-component (CMYK/YCCK) JPEG is not supported");
-    if (nc != 1 && nc != 3)
+    if (nc != 1 && nc != 3 && nc != 4)
       fail("%d-component JPEG is not supported", nc);
     if (H == 0 || W == 0) fail("empty JPEG image");
     if (H > 65500 || W > 65500 || (int64_t)W * H > (1 << 30))
@@ -375,9 +490,10 @@ class Decoder {
       max_h_ = c.h > max_h_ ? c.h : max_h_;
       max_v_ = c.v > max_v_ ? c.v : max_v_;
     }
-    mcux_ = (W + 8 * max_h_ - 1) / (8 * max_h_);
-    mcuy_ = (H + 8 * max_v_ - 1) / (8 * max_v_);
-    size_t fewest = SIZE_MAX;  // blocks of the smallest component
+    const int unit = lossless_ ? 1 : 8;  // samples per data unit side
+    mcux_ = (W + unit * max_h_ - 1) / (unit * max_h_);
+    mcuy_ = (H + unit * max_v_ - 1) / (unit * max_v_);
+    size_t fewest = SIZE_MAX;  // data units of the smallest component
     for (Component& c : comps_) {
       c.dw = (int)(((int64_t)W * c.h + max_h_ - 1) / max_h_);
       c.dh = (int)(((int64_t)H * c.v + max_v_ - 1) / max_v_);
@@ -385,14 +501,19 @@ class Decoder {
       c.bh = (c.dh + 7) / 8;
       c.pw = (c.bw + c.h - 1) / c.h * c.h;
       c.ph = (c.bh + c.v - 1) / c.v * c.v;
-      const size_t nb = (size_t)c.bw * c.bh;
+      const size_t nb = lossless_ ? (size_t)c.dw * c.dh
+                                  : (size_t)c.bw * c.bh;
       fewest = nb < fewest ? nb : fewest;
     }
-    // Any decodable file holds one complete DC or sequential scan of a
-    // component, at least a bit per block: refuse a cut file before
-    // allocating the coefficients its header asks for.
+    // Any decodable file holds one complete DC, sequential or lossless
+    // scan of a component, at least a bit per data unit: refuse a cut
+    // file before allocating what its header asks for.
     if (rest < fewest / 8) fail("truncated JPEG data");
     for (Component& c : comps_) {
+      if (lossless_) {
+        c.plane.assign((size_t)c.bw * 8 * c.bh * 8, 0);
+        continue;
+      }
       c.coef.assign((size_t)c.pw * c.ph * 64, 0);
       for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
     }
@@ -431,6 +552,23 @@ class Decoder {
                  : s[i + k];
       qt_defined_[tq] = true;
       i += need;
+    }
+  }
+
+  // DAC (get_dac): pairs of (Tc << 4 | Tb, value); DC values hold U in
+  // the high and L in the low nibble, AC values Kx.
+  void read_dac(const uint8_t* s, size_t sl) {
+    if (sl % 2) fail("bad DAC marker length");
+    for (size_t i = 0; i < sl; i += 2) {
+      const int idx = s[i], val = s[i + 1];
+      if (idx >= 32) fail("bad DAC table index 0x%02x", idx);
+      if (idx >= 16) {
+        dac_k_[idx - 16] = (uint8_t)val;
+      } else {
+        dac_l_[idx] = val & 15;
+        dac_u_[idx] = val >> 4;
+        if (dac_l_[idx] > dac_u_[idx]) fail("bad DAC value 0x%02x", val);
+      }
     }
   }
 
@@ -512,6 +650,183 @@ class Decoder {
   // marker the reader stopped on, or where its bytes end.
   size_t segment_end() const { return hit_ ? marker_at_ : pos_; }
 
+  // --------------------------------------------------- arithmetic decoder
+  void arith_start(size_t p) {
+    pos_ = p;
+    hit_ = false;
+    ac_c_ = ac_a_ = 0;
+    ac_ct_ = -16;  // fetch two bytes into C first
+  }
+
+  // The next byte of entropy-coded data (FF 00 unstuffed), or 0 from the
+  // marker on (jdarith.c's get_byte convention).  Data that ends with no
+  // marker is a truncated file.
+  int arith_byte() {
+    if (hit_) return 0;
+    if (pos_ >= n_) fail("corrupt JPEG data: premature end of data segment");
+    const int b = d_[pos_];
+    if (b != 0xFF) {
+      pos_++;
+      return b;
+    }
+    size_t q = pos_ + 1;
+    while (q < n_ && d_[q] == 0xFF) q++;
+    if (q >= n_) fail("corrupt JPEG data: premature end of data segment");
+    if (d_[q] == 0) {
+      pos_ = q + 1;
+      return 0xFF;
+    }
+    hit_ = true;
+    marker_at_ = pos_;
+    return 0;
+  }
+
+  // D.2: one decision with the statistics bin *st (state index in bits
+  // 0-6, MPS in bit 7): renormalisation and byte input (D.2.6), then
+  // the decision and the estimate's update (D.2.4, D.2.5).
+  int arith_decode(uint8_t* st) {
+    while (ac_a_ < 0x8000) {
+      if (--ac_ct_ < 0) {
+        ac_c_ = (ac_c_ << 8) | arith_byte();
+        if ((ac_ct_ += 8) < 0 && ++ac_ct_ == 0) ac_a_ = 0x8000;
+      }
+      ac_a_ <<= 1;
+    }
+    int sv = *st;
+    const QeState& e = kQe[sv & 0x7F];
+    const int64_t qe = e.qe;
+    const uint8_t nl = (uint8_t)(e.nlps | e.sw << 7), nm = e.nmps;
+    int64_t temp = ac_a_ - qe;
+    ac_a_ = temp;
+    temp <<= ac_ct_;
+    if (ac_c_ >= temp) {
+      ac_c_ -= temp;
+      if (ac_a_ < qe) {  // conditional exchange: the MPS
+        ac_a_ = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        ac_a_ = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (ac_a_ < 0x8000) {
+      if (ac_a_ < qe) {  // conditional exchange: the LPS
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  [[noreturn]] static void bad_arith() {
+    fail("corrupt JPEG data: bad arithmetic code");
+  }
+
+  // F.2.4.1: a DC difference with table `tbl`'s statistics at context
+  // *ctx, which becomes the next context (F.1.4.4.1.2).
+  int arith_dc_diff(int tbl, int* ctx) {
+    uint8_t* dcs = dc_stats_[tbl];
+    uint8_t* st = dcs + *ctx;
+    if (arith_decode(st) == 0) {
+      *ctx = 0;
+      return 0;
+    }
+    const int sign = arith_decode(st + 1);
+    st += 2 + sign;
+    int m = arith_decode(st);
+    if (m) {
+      st = dcs + 20;
+      while (arith_decode(st)) {
+        if ((m <<= 1) == 0x8000) bad_arith();
+        st++;
+      }
+    }
+    if (m < (1 << dac_l_[tbl]) >> 1)
+      *ctx = 0;
+    else if (m > (1 << dac_u_[tbl]) >> 1)
+      *ctx = 12 + sign * 4;
+    else
+      *ctx = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (arith_decode(st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+  }
+
+  // F.2.4.2 / G.2: the AC coefficients ss..se of a block, each shifted
+  // left by al.
+  void arith_ac(int tbl, int16_t* blk, int ss, int se, int al) {
+    uint8_t* acs = ac_stats_[tbl];
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = acs + 3 * (k - 1);
+      if (arith_decode(st)) break;  // EOB
+      while (arith_decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) bad_arith();
+      }
+      const int sign = arith_decode(&fixed_bin_);
+      st += 2;
+      int m = arith_decode(st);
+      if (m && arith_decode(st)) {
+        m <<= 1;
+        st = acs + (k <= dac_k_[tbl] ? 189 : 217);
+        while (arith_decode(st)) {
+          if ((m <<= 1) == 0x8000) bad_arith();
+          st++;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (arith_decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = (int16_t)(uint32_t)((uint32_t)v << al);
+    }
+  }
+
+  // G.2's AC refinement (jdarith.c decode_mcu_AC_refine).
+  void arith_ac_refine(int tbl, int16_t* blk, int ss, int se, int al) {
+    uint8_t* acs = ac_stats_[tbl];
+    const int p1 = 1 << al, m1 = (int)(~0u << al);
+    int kex = se;  // the previous stages' end of block
+    while (kex > 0 && blk[kNatural[kex]] == 0) kex--;
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = acs + 3 * (k - 1);
+      if (k > kex && arith_decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* co = blk + kNatural[k];
+        if (*co) {  // nonzero before: a correction bit
+          if (arith_decode(st + 2)) *co = (int16_t)(*co + (*co < 0 ? m1 : p1));
+          break;
+        }
+        if (arith_decode(st + 1)) {  // newly nonzero
+          *co = (int16_t)(arith_decode(&fixed_bin_) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) bad_arith();
+      }
+    }
+  }
+
+  // The statistics and predictions a scan starts with, and starts again
+  // with at each restart (jdarith.c start_pass, process_restart).
+  void arith_reset(const int* cs, int ns, int ss, int ah) {
+    for (int i = 0; i < ns; i++) {
+      const Component& c = comps_[cs[i]];
+      if (!progressive_ || (ss == 0 && ah == 0))
+        memset(dc_stats_[c.dc_tbl], 0, sizeof(dc_stats_[0]));
+      if (!progressive_ || ss)
+        memset(ac_stats_[c.ac_tbl], 0, sizeof(ac_stats_[0]));
+      dc_ctx_[i] = 0;
+    }
+  }
+
   // --------------------------------------------------------------- scans
   size_t read_sos(const uint8_t* s, size_t sl, size_t p) {
     if (!sof_) fail("SOS marker before SOF");
@@ -530,16 +845,28 @@ class Decoder {
       cs[i] = ci;
       comps_[ci].dc_tbl = s[2 + 2 * i] >> 4;
       comps_[ci].ac_tbl = s[2 + 2 * i] & 15;
-      if (comps_[ci].dc_tbl > 3 || comps_[ci].ac_tbl > 3)
+      if (!arith_ && (comps_[ci].dc_tbl > 3 || comps_[ci].ac_tbl > 3))
         fail("bad Huffman table number in SOS");
     }
     const int ss = s[1 + 2 * ns], se = s[2 + 2 * ns];
     const int ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
-    if (scans_ == 0)
-      for (int t = 0; t < 2; t++) {  // std_huff_tables
-        if (!dc_spec_[t].defined) std_table(&dc_spec_[t], t, true);
-        if (!ac_spec_[t].defined) std_table(&ac_spec_[t], t, false);
-      }
+    if (scans_ == 0) {
+      choose_space();
+      if (!arith_)
+        for (int t = 0; t < 2; t++) {  // std_huff_tables
+          if (!dc_spec_[t].defined) std_table(&dc_spec_[t], t, true);
+          if (!ac_spec_[t].defined) std_table(&ac_spec_[t], t, false);
+        }
+    }
+    if (lossless_) {
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= precision_)
+        fail("bad lossless JPEG scan parameters");
+      for (int i = 0; i < ns; i++)
+        derive(dc_spec_[comps_[cs[i]].dc_tbl], 16, &dc_[comps_[cs[i]].dc_tbl]);
+      decode_lossless_scan(cs, ns, ss, al, p);
+      scans_++;
+      return segment_end();
+    }
     for (int i = 0; i < ns; i++) {  // latch_quant_tables
       Component& c = comps_[cs[i]];
       if (c.latched) continue;
@@ -552,17 +879,43 @@ class Decoder {
       check_progression(cs, ns, ss, se, ah, al);
     else if (ss != 0 || se != 63 || ah != 0 || al != 0)
       fail("bad sequential JPEG scan parameters");
-    for (int i = 0; i < ns; i++) {
-      Component& c = comps_[cs[i]];
-      const bool dc_band = ss == 0;
-      if (!progressive_ || (dc_band && ah == 0))
-        derive(dc_spec_[c.dc_tbl], true, &dc_[c.dc_tbl]);
-      if (!progressive_ || !dc_band)
-        derive(ac_spec_[c.ac_tbl], false, &ac_[c.ac_tbl]);
-    }
+    if (!arith_)
+      for (int i = 0; i < ns; i++) {
+        Component& c = comps_[cs[i]];
+        const bool dc_band = ss == 0;
+        if (!progressive_ || (dc_band && ah == 0))
+          derive(dc_spec_[c.dc_tbl], 15, &dc_[c.dc_tbl]);
+        if (!progressive_ || !dc_band)
+          derive(ac_spec_[c.ac_tbl], -1, &ac_[c.ac_tbl]);
+      }
     decode_scan(cs, ns, ss, se, ah, al, p);
     scans_++;
     return segment_end();
+  }
+
+  // default_decompress_parms' colour space, from the markers and ids
+  // seen before the first scan.  Lossless mode converts no colour, so
+  // only RGB and CMYK files read in colour.
+  void choose_space() {
+    const int nc = (int)comps_.size();
+    if (nc == 1) {
+      space_ = kGrey;
+    } else if (nc == 3) {
+      if (jfif_)
+        space_ = kYCbCr;
+      else if (adobe_)
+        space_ = adobe_transform_ == 0 ? kRGB : kYCbCr;
+      else
+        space_ = comps_[0].id == 82 && comps_[1].id == 71 &&
+                         comps_[2].id == 66
+                     ? kRGB
+                     : kYCbCr;
+    } else {
+      space_ = adobe_ && adobe_transform_ != 0 ? kYCCK : kCMYK;
+    }
+    if (lossless_ && space_ != kRGB && space_ != kCMYK)
+      fail("lossless JPEG in %s is not supported (lossless mode converts "
+           "no colour)", kSpaceName[space_]);
   }
 
   void std_table(HuffSpec* spec, int t, bool dc) {
@@ -590,6 +943,21 @@ class Decoder {
     }
   }
 
+  // Starts the entropy decoder on the data at p, or after the restart
+  // marker `expect` (>= 0) that ends the current segment.
+  void segment_start(size_t p, int expect) {
+    if (expect >= 0) {
+      p = segment_end();
+      const int m = next_marker(&p);
+      if (m != 0xD0 + expect)
+        fail("corrupt JPEG data: expected restart marker %d", expect);
+    }
+    if (arith_)
+      arith_start(p);
+    else
+      bits_start(p);
+  }
+
   void decode_scan(const int* cs, int ns, int ss, int se, int ah, int al,
                    size_t p) {
     int mx, my, nblocks = 0;
@@ -603,25 +971,27 @@ class Decoder {
         nblocks += comps_[cs[i]].h * comps_[cs[i]].v;
       if (nblocks > 10) fail("bad JPEG MCU size");
     }
-    bits_start(p);
+    segment_start(p, -1);
     int pred[4] = {0, 0, 0, 0};
+    if (arith_) arith_reset(cs, ns, ss, ah);
     eobrun_ = 0;
     int to_go = restart_interval_, next_rst = 0;
     const int total = mx * my;
     for (int m = 0; m < total; m++) {
       if (restart_interval_) {
         if (to_go == 0) {
-          restart(next_rst);
+          segment_start(0, next_rst);
           next_rst = (next_rst + 1) & 7;
           to_go = restart_interval_;
           pred[0] = pred[1] = pred[2] = pred[3] = 0;
           eobrun_ = 0;
+          if (arith_) arith_reset(cs, ns, ss, ah);
         }
         to_go--;
       }
       const int ux = m % mx, uy = m / mx;
       if (ns == 1) {
-        decode_block(comps_[cs[0]], comps_[cs[0]].block(uy, ux), &pred[0],
+        decode_block(comps_[cs[0]], comps_[cs[0]].block(uy, ux), 0, pred,
                      ss, se, ah, al);
         continue;
       }
@@ -629,27 +999,36 @@ class Decoder {
         Component& c = comps_[cs[i]];
         for (int y = 0; y < c.v; y++)
           for (int x = 0; x < c.h; x++)
-            decode_block(c, c.block(uy * c.v + y, ux * c.h + x), &pred[i],
+            decode_block(c, c.block(uy * c.v + y, ux * c.h + x), i, pred,
                          ss, se, ah, al);
       }
     }
   }
 
-  void restart(int expect) {
-    size_t p = segment_end();
-    const int m = next_marker(&p);
-    if (m != 0xD0 + expect)
-      fail("corrupt JPEG data: expected restart marker %d", expect);
-    bits_start(p);
-  }
-
-  void decode_block(Component& c, int16_t* blk, int* pred, int ss, int se,
-                    int ah, int al) {
+  // One block of component c, the i-th of the scan (its prediction
+  // pred[i] and, arithmetic-coded, its DC context).
+  void decode_block(Component& c, int16_t* blk, int i, int* pred, int ss,
+                    int se, int ah, int al) {
+    if (arith_) {
+      if (ss == 0 && (!progressive_ || ah == 0)) {  // F.2.4.1, G.2 DC first
+        pred[i] = wadd(pred[i], arith_dc_diff(c.dc_tbl, &dc_ctx_[i]));
+        blk[0] = (int16_t)(uint32_t)((uint32_t)pred[i] << al);
+      } else if (ss == 0) {  // DC refinement
+        if (arith_decode(&fixed_bin_)) blk[0] |= (int16_t)(1 << al);
+      }
+      if (!progressive_)
+        arith_ac(c.ac_tbl, blk, 1, 63, 0);
+      else if (ss && ah == 0)
+        arith_ac(c.ac_tbl, blk, ss, se, al);
+      else if (ss)
+        arith_ac_refine(c.ac_tbl, blk, ss, se, al);
+      return;
+    }
     if (!progressive_) {
       int s = decode(dc_[c.dc_tbl]);
       s = extend(get_bits(s), s);
-      *pred = wadd(*pred, s);
-      blk[0] = (int16_t)*pred;
+      pred[i] = wadd(pred[i], s);
+      blk[0] = (int16_t)pred[i];
       const Huff& ac = ac_[c.ac_tbl];
       for (int k = 1; k < 64; k++) {
         const int rs = decode(ac);
@@ -668,8 +1047,8 @@ class Decoder {
       if (ah == 0) {
         int s = decode(dc_[c.dc_tbl]);
         s = extend(get_bits(s), s);
-        *pred = wadd(*pred, s);
-        blk[0] = (int16_t)(uint32_t)((uint32_t)*pred << al);
+        pred[i] = wadd(pred[i], s);
+        blk[0] = (int16_t)(uint32_t)((uint32_t)pred[i] << al);
       } else if (get_bits(1)) {
         blk[0] |= (int16_t)(1 << al);
       }
@@ -738,6 +1117,117 @@ class Decoder {
     }
   }
 
+  // ------------------------------------------------------------ lossless
+  // A lossless scan as jddiffct.c runs it: per iMCU row (one MCU row of
+  // an interleaved scan; v sample rows of a component's own scan) the
+  // differences of every MCU row, a restart marker before an MCU row
+  // when the interval's rows are done; then each component's rows of
+  // the iMCU row undifferenced (H.1.2.1) and written to its plane as
+  // (value << Pt) & 255.
+  void decode_lossless_scan(const int* cs, int ns, int psv, int pt,
+                            size_t p) {
+    int per_row, blocks = 0;
+    if (ns == 1) {
+      per_row = comps_[cs[0]].dw;
+    } else {
+      per_row = mcux_;
+      for (int i = 0; i < ns; i++)
+        blocks += comps_[cs[i]].h * comps_[cs[i]].v;
+      if (blocks > 10) fail("bad JPEG MCU size");
+    }
+    if (restart_interval_ % per_row)
+      fail("lossless JPEG restart interval %d is not whole MCU rows of %d",
+           restart_interval_, per_row);
+    const int interval_rows = restart_interval_ / per_row;
+    int rows_to_go = interval_rows, next_rst = 0;
+    bool first[4];
+    for (int i = 0; i < ns; i++) {
+      Component& c = comps_[cs[i]];
+      c.diff.assign((size_t)c.v * per_row * (ns == 1 ? 1 : c.h), 0);
+      c.prev.assign(c.dw, 0);
+      first[i] = true;
+    }
+    segment_start(p, -1);
+    for (int imcu = 0; imcu < mcuy_; imcu++) {
+      const int mcu_rows = ns > 1 ? 1
+          : imcu < mcuy_ - 1 ? comps_[cs[0]].v
+          : comps_[cs[0]].dh - imcu * comps_[cs[0]].v;
+      for (int y = 0; y < mcu_rows; y++) {
+        if (restart_interval_) {
+          if (rows_to_go == 0) {
+            segment_start(0, next_rst);
+            next_rst = (next_rst + 1) & 7;
+            rows_to_go = interval_rows;
+            for (int i = 0; i < ns; i++) first[i] = true;
+          }
+          rows_to_go--;
+        }
+        for (int mx = 0; mx < per_row; mx++)
+          for (int i = 0; i < ns; i++) {
+            Component& c = comps_[cs[i]];
+            const int v = ns == 1 ? 1 : c.v, h = ns == 1 ? 1 : c.h;
+            const int w = per_row * h;
+            for (int yy = 0; yy < v; yy++)
+              for (int xx = 0; xx < h; xx++)
+                c.diff[(size_t)(y + yy) * w + mx * h + xx] =
+                    lossless_diff(dc_[c.dc_tbl]);
+          }
+      }
+      for (int i = 0; i < ns; i++) {
+        Component& c = comps_[cs[i]];
+        const int w = per_row * (ns == 1 ? 1 : c.h);
+        const int r0 = imcu * c.v;
+        const int rows = r0 + c.v <= c.dh ? c.v : c.dh - r0;
+        for (int r = 0; r < rows; r++) {
+          undifference(c, &c.diff[(size_t)r * w], psv, pt, first[i]);
+          first[i] = false;
+          uint8_t* out = &c.plane[(size_t)(r0 + r) * c.bw * 8];
+          for (int x = 0; x < c.dw; x++)
+            out[x] = (uint8_t)((uint32_t)c.prev[x] << pt);
+        }
+      }
+    }
+  }
+
+  // H.2.2: a sample difference; category 16 is 32768 with no bits.
+  int lossless_diff(const Huff& h) {
+    const int s = decode(h);
+    if (s == 16) return 32768;
+    return extend(get_bits(s), s);
+  }
+
+  // One row of differences into c.prev (which holds the row above):
+  // 1-D from 2^(P - Pt - 1) when `first`, else the first sample from
+  // above and the rest with predictor psv, modulo 2^16.
+  void undifference(Component& c, const int32_t* diff, int psv, int pt,
+                    bool first) {
+    int32_t* row = c.prev.data();
+    const int w = c.dw;
+    if (first) {
+      int32_t ra = (diff[0] + (1 << (precision_ - pt - 1))) & 0xFFFF;
+      row[0] = ra;
+      for (int x = 1; x < w; x++) row[x] = ra = (diff[x] + ra) & 0xFFFF;
+      return;
+    }
+    int32_t rb = row[0], ra = (diff[0] + rb) & 0xFFFF, rc;
+    row[0] = ra;
+    for (int x = 1; x < w; x++) {
+      rc = rb;
+      rb = row[x];
+      int32_t pred;
+      switch (psv) {
+        case 1: pred = ra; break;
+        case 2: pred = rb; break;
+        case 3: pred = rc; break;
+        case 4: pred = ra + rb - rc; break;
+        case 5: pred = ra + ((rb - rc) >> 1); break;
+        case 6: pred = rb + ((ra - rc) >> 1); break;
+        default: pred = (ra + rb) >> 1; break;
+      }
+      row[x] = ra = (diff[x] + pred) & 0xFFFF;
+    }
+  }
+
   // The orientation of an Exif APP1 as OpenCV reads it: the TIFF header
   // after "Exif\0\0", IFD0's first 0x0112 entry, its 16-bit value (0
   // unless 1-8).  Returns false, to try the next Exif APP1, when the
@@ -778,38 +1268,31 @@ class Decoder {
         for (int k = 0; k < 10; k++)
           if (c.coef_bits[k] != 0)
             fail("incomplete progressive JPEG data");
-    for (Component& c : comps_) {
-      const int stride = c.bw * 8;
-      c.plane.assign((size_t)stride * c.bh * 8, 0);
-      for (int r = 0; r < c.bh; r++)
-        for (int b = 0; b < c.bw; b++)
-          idct_block(c.block(r, b), c.q,
-                     &c.plane[(size_t)r * 8 * stride + b * 8], stride);
-    }
+    if (!lossless_)
+      for (Component& c : comps_) {
+        const int stride = c.bw * 8;
+        c.plane.assign((size_t)stride * c.bh * 8, 0);
+        for (int r = 0; r < c.bh; r++)
+          for (int b = 0; b < c.bw; b++)
+            idct_block(c.block(r, b), c.q,
+                       &c.plane[(size_t)r * 8 * stride + b * 8], stride);
+      }
     const size_t npx = (size_t)W * H;
-    std::vector<uint8_t> full[3];
+    std::vector<uint8_t> full[4];
     for (size_t i = 0; i < comps_.size(); i++) {
       full[i].resize(npx);
       upsample(comps_[i], full[i].data());
     }
     rgb.resize(npx * 3);
-    if (comps_.size() == 1) {
+    uint8_t* o = rgb.data();
+    if (space_ == kGrey) {
       for (size_t i = 0; i < npx; i++)
-        rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = full[0][i];
+        o[3 * i] = o[3 * i + 1] = o[3 * i + 2] = full[0][i];
       return;
     }
-    bool ycc = true;  // default_decompress_parms
-    if (jfif_) {
-      ycc = true;
-    } else if (adobe_) {
-      ycc = adobe_transform_ != 0;
-    } else {
-      const int a = comps_[0].id, b = comps_[1].id, c = comps_[2].id;
-      ycc = !(a == 82 && b == 71 && c == 66);
-    }
-    if (!ycc) {
+    if (space_ == kRGB) {
       for (size_t i = 0; i < npx; i++)
-        for (int k = 0; k < 3; k++) rgb[3 * i + k] = full[k][i];
+        for (int k = 0; k < 3; k++) o[3 * i + k] = full[k][i];
       return;
     }
     int cr_r[256], cb_b[256];
@@ -823,17 +1306,37 @@ class Decoder {
     }
     auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
     const uint8_t *Y = full[0].data(), *Cb = full[1].data(),
-                  *Cr = full[2].data();
+                  *Cr = full[2].data(), *K = full[3].data();
+    if (space_ == kYCbCr) {
+      for (size_t i = 0; i < npx; i++) {
+        const int y = Y[i], cb = Cb[i], cr = Cr[i];
+        o[3 * i] = clamp(y + cr_r[cr]);
+        o[3 * i + 1] = clamp(y + ((cb_g[cb] + cr_g[cr]) >> 16));
+        o[3 * i + 2] = clamp(y + cb_b[cb]);
+      }
+      return;
+    }
+    // CMYK (YCCK first made CMYK by ycck_cmyk_convert), then OpenCV's
+    // CMYK -> BGR
+    auto ink = [](int v, int k) { return (uint8_t)(k - ((255 - v) * k >> 8)); };
     for (size_t i = 0; i < npx; i++) {
-      const int y = Y[i], cb = Cb[i], cr = Cr[i];
-      rgb[3 * i] = clamp(y + cr_r[cr]);
-      rgb[3 * i + 1] = clamp(y + ((cb_g[cb] + cr_g[cr]) >> 16));
-      rgb[3 * i + 2] = clamp(y + cb_b[cb]);
+      int c = Y[i], m = Cb[i], y = Cr[i];
+      const int k = K[i];
+      if (space_ == kYCCK) {
+        const int l = Y[i], cb = Cb[i], cr = Cr[i];
+        c = clamp(255 - (l + cr_r[cr]));
+        m = clamp(255 - (l + ((cb_g[cb] + cr_g[cr]) >> 16)));
+        y = clamp(255 - (l + cb_b[cb]));
+      }
+      o[3 * i] = ink(c, k);
+      o[3 * i + 1] = ink(m, k);
+      o[3 * i + 2] = ink(y, k);
     }
   }
 
   // One component at full size (H rows of W samples) from its plane,
-  // with the method jinit_upsampler picks.
+  // with the method jinit_upsampler picks (no fancy filters in lossless
+  // mode, whose data units are single samples).
   void upsample(const Component& c, uint8_t* out) const {
     const int stride = c.bw * 8;
     const uint8_t* in = c.plane.data();
@@ -845,8 +1348,9 @@ class Decoder {
       for (int y = 0; y < H; y++) memcpy(out + (size_t)y * W, row(y), W);
       return;
     }
+    const bool fancy = !lossless_;
     std::vector<uint8_t> tmp(2 * (size_t)c.dw + 2);
-    if (hi * 2 == ho && vi == vo && c.dw > 2) {  // h2v1 fancy
+    if (fancy && hi * 2 == ho && vi == vo && c.dw > 2) {  // h2v1 fancy
       for (int y = 0; y < H; y++) {
         const uint8_t* s = row(y);
         uint8_t* o = tmp.data();
@@ -864,7 +1368,7 @@ class Decoder {
       }
       return;
     }
-    if (hi == ho && vi * 2 == vo) {  // h1v2 fancy
+    if (fancy && hi == ho && vi * 2 == vo) {  // h1v2 fancy
       for (int y = 0; y < H; y++) {
         const int r = y >> 1;
         const uint8_t* s0 = row(r);
@@ -876,7 +1380,7 @@ class Decoder {
       }
       return;
     }
-    if (hi * 2 == ho && vi * 2 == vo && c.dw > 2) {  // h2v2 fancy
+    if (fancy && hi * 2 == ho && vi * 2 == vo && c.dw > 2) {  // h2v2 fancy
       std::vector<int> sum(c.dw);
       for (int y = 0; y < H; y++) {
         const int r = y >> 1;
@@ -909,9 +1413,10 @@ class Decoder {
 
   const uint8_t* d_;
   size_t n_;
-  bool sof_ = false, progressive_ = false;
+  bool sof_ = false, progressive_ = false, arith_ = false, lossless_ = false;
   bool jfif_ = false, adobe_ = false, exif_ = false;
-  int adobe_transform_ = 0;
+  int adobe_transform_ = 0, precision_ = 8;
+  Space space_ = kGrey;
   int scans_ = 0, restart_interval_ = 0;
   int max_h_ = 1, max_v_ = 1, mcux_ = 0, mcuy_ = 0;
   std::vector<Component> comps_;
@@ -920,11 +1425,23 @@ class Decoder {
   HuffSpec dc_spec_[4], ac_spec_[4];
   Huff dc_[4], ac_[4];
   int eobrun_ = 0;
-  // bit reader state
+  // bit reader state (the arithmetic decoder shares pos_, hit_ and
+  // marker_at_)
   size_t pos_ = 0, marker_at_ = 0;
   uint64_t buf_ = 0;
   int nbits_ = 0, fake_ = 0;
   bool hit_ = false;
+  // arithmetic decoder: C and A registers, bit counter, statistics
+  // areas and DAC conditioning per table (T.81's defaults L 0, U 1,
+  // Kx 5), the scan's DC contexts, the fixed 0.5 bin
+  int64_t ac_c_ = 0, ac_a_ = 0;
+  int ac_ct_ = 0;
+  uint8_t dc_stats_[16][64] = {}, ac_stats_[16][256] = {};
+  uint8_t dac_l_[16] = {}, dac_u_[16] = {1, 1, 1, 1, 1, 1, 1, 1,
+                                         1, 1, 1, 1, 1, 1, 1, 1};
+  uint8_t dac_k_[16] = {5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5};
+  int dc_ctx_[4] = {};
+  uint8_t fixed_bin_ = kFixedBin;
 };
 
 }  // namespace

@@ -1,7 +1,7 @@
 """Readers for the committed fixtures: the Flax-tree npz checkpoint,
-PNGs (every non-interlaced colour type, read as cv2 reads them, and
-8- or 16-bit grayscale unchanged, as Cityscapes' instance-id maps are
-stored), and the certification probability maps; and a PNG writer
+PNGs (every colour type and bit depth, non-interlaced or Adam7, read as
+cv2 reads them, and grayscale unchanged, as Cityscapes' instance-id maps
+are stored), and the certification probability maps; and a PNG writer
 (8-bit grayscale or RGB, 16-bit grayscale) for the training samples,
 the synthetic dataset and instance-id maps.
 
@@ -75,12 +75,42 @@ def _unfilter_row(ftype, row, prev, bpp):
 #: samples per pixel of each PNG colour type
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
+#: Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _unfilter_image(raw, H, W, ch, depth):
+    """Samples (H, W, ch) of one image's filtered scanlines `raw` (a
+    whole non-interlaced image or one Adam7 pass): 8- and 16-bit
+    samples as uint8 and big-endian uint16, 1-, 2- and 4-bit ones
+    unpacked to uint8 (unscaled)."""
+    row_bytes = (W * ch * depth + 7) // 8
+    bpp = max(1, ch * depth // 8)
+    raw = raw.reshape(H, row_bytes + 1)
+    rows = np.empty((H, row_bytes), np.uint8)
+    prev = np.zeros(row_bytes, np.uint8)
+    for i in range(H):
+        prev = rows[i] = _unfilter_row(int(raw[i, 0]), raw[i, 1:], prev, bpp)
+    if depth == 16:  # big-endian samples
+        samples = rows.view(">u2").astype(np.uint16)
+    elif depth == 8:
+        samples = rows
+    else:
+        bits = np.unpackbits(rows, axis=1).reshape(H, -1, depth)[:, :W]
+        samples = (bits * (1 << np.arange(depth - 1, -1, -1))).sum(
+            -1).astype(np.uint8)
+    return samples.reshape(H, W, ch)
+
 
 def _read_png(path):
-    """(samples (H, W, ch), colour type, bit depth, PLTE) of a
-    non-interlaced PNG: 8- and 16-bit samples as uint8 and big-endian
-    uint16, 1-, 2- and 4-bit ones unpacked to uint8 (unscaled).
-    Interlaced files and unknown types raise ValueError naming them."""
+    """(samples (H, W, ch), colour type, bit depth, PLTE) of a PNG:
+    8- and 16-bit samples as uint8 and big-endian uint16, 1-, 2- and
+    4-bit ones unpacked to uint8 (unscaled).  An Adam7-interlaced file's
+    seven passes are unfiltered each on its own (empty passes have no
+    scanlines) and their pixels put back in place.  Unknown types and
+    interlace methods raise ValueError naming the file, as does image
+    data shorter than its scanlines."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
@@ -102,9 +132,9 @@ def _read_png(path):
     if hdr is None:
         raise ValueError("%s has no IHDR chunk" % path)
     W, H, depth, color, _, _, interlace = hdr
-    if interlace != 0:
-        raise ValueError("%s: interlaced (Adam7) PNGs are not supported"
-                         % path)
+    if interlace not in (0, 1):
+        raise ValueError("%s: unknown PNG interlace method %d"
+                         % (path, interlace))
     if color not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16) or (
             depth < 8 and color not in (0, 3)) or (depth == 16
                                                     and color == 3):
@@ -113,36 +143,32 @@ def _read_png(path):
     if color == 3 and plte is None:
         raise ValueError("%s: palette PNG without a PLTE chunk" % path)
     ch = _PNG_CHANNELS[color]
-    row_bytes = (W * ch * depth + 7) // 8
-    bpp = max(1, ch * depth // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    stride = row_bytes + 1
-    if raw.size < H * stride:
-        raise ValueError("%s: decompressed size %d < %d"
-                         % (path, raw.size, H * stride))
-    raw = raw[:H * stride].reshape(H, stride)
-    rows = np.empty((H, row_bytes), np.uint8)
-    prev = np.zeros(row_bytes, np.uint8)
-    for i in range(H):
-        prev = rows[i] = _unfilter_row(int(raw[i, 0]), raw[i, 1:], prev, bpp)
-    if depth == 16:  # big-endian samples
-        samples = rows.view(">u2").astype(np.uint16)
-    elif depth == 8:
-        samples = rows
-    else:
-        bits = np.unpackbits(rows, axis=1).reshape(H, -1, depth)[:, :W]
-        samples = (bits * (1 << np.arange(depth - 1, -1, -1))).sum(
-            -1).astype(np.uint8)
-    return samples.reshape(H, W, ch), color, depth, plte
+    passes = [(x0, y0, dx, dy, -(-(W - x0) // dx), -(-(H - y0) // dy))
+              for x0, y0, dx, dy in _ADAM7] if interlace else [
+                  (0, 0, 1, 1, W, H)]
+    passes = [p for p in passes if p[4] > 0 and p[5] > 0]
+    sizes = [ph * ((pw * ch * depth + 7) // 8 + 1)
+             for _, _, _, _, pw, ph in passes]
+    if raw.size < sum(sizes):
+        raise ValueError("%s: decompressed size %d < %d%s"
+                         % (path, raw.size, sum(sizes),
+                            " (Adam7-interlaced)" if interlace else ""))
+    samples = np.empty((H, W, ch), np.uint16 if depth == 16 else np.uint8)
+    at = 0
+    for (x0, y0, dx, dy, pw, ph), n in zip(passes, sizes):
+        samples[y0::dy, x0::dx] = _unfilter_image(raw[at:at + n], ph, pw, ch,
+                                                  depth)
+        at += n
+    return samples, color, depth, plte
 
 
 def read_png_rgb(path):
-    """(H, W, 3) uint8 RGB of a non-interlaced PNG, as `cv2.imread` (then
-    BGR -> RGB) gives it: RGB as stored; grey replicated to three
-    channels (1, 2 and 4-bit grey scaled to 0-255); palette indices
-    looked up in PLTE; alpha dropped; 16-bit samples keep their high
-    byte.  Interlaced files and unknown types raise ValueError naming
-    them."""
+    """(H, W, 3) uint8 RGB of a PNG, non-interlaced or Adam7, as
+    `cv2.imread` (then BGR -> RGB) gives it: RGB as stored; grey
+    replicated to three channels (1, 2 and 4-bit grey scaled to 0-255);
+    palette indices looked up in PLTE; alpha dropped; 16-bit samples
+    keep their high byte.  Unknown types raise ValueError naming them."""
     samples, color, depth, plte = _read_png(path)
     if depth == 16:
         samples = (samples >> 8).astype(np.uint8)
@@ -159,16 +185,19 @@ def read_png_rgb(path):
 
 
 def read_png_gray(path):
-    """(H, W) array of an 8- or 16-bit grayscale PNG with its samples
-    unchanged, as `cv2.imread(path, cv2.IMREAD_UNCHANGED)` gives it:
-    uint8 at 8 bits, uint16 with the full big-endian value at 16 (a
-    Cityscapes `*_instanceIds.png`).  Any other colour type or bit
-    depth raises ValueError naming it, as do interlaced files."""
+    """(H, W) array of a grayscale PNG (colour type 0, non-interlaced or
+    Adam7), as `cv2.imread(path, cv2.IMREAD_UNCHANGED)` gives it: uint16
+    with the full big-endian value at 16 bits (a Cityscapes
+    `*_instanceIds.png`), uint8 at 8 bits, and 1, 2 and 4-bit samples
+    scaled to 0-255 as libpng expands them.  Other colour types (which
+    cv2 reads with 3 or 4 channels) raise ValueError naming them."""
     samples, color, depth, _ = _read_png(path)
-    if color != 0 or depth not in (8, 16):
-        raise ValueError("%s: read_png_gray reads 8- and 16-bit grayscale "
-                         "PNGs only, got colour type %d at bit depth %d"
+    if color != 0:
+        raise ValueError("%s: read_png_gray reads grayscale PNGs only, got "
+                         "colour type %d at bit depth %d"
                          % (path, color, depth))
+    if depth < 8:
+        samples = samples * np.uint8(255 // ((1 << depth) - 1))
     return np.ascontiguousarray(samples[..., 0])
 
 

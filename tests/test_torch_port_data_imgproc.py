@@ -296,14 +296,16 @@ def test_read_png_colour_types_equal_cv2(tmp_path):
 
 def test_imread_refuses_jpeg_and_interlaced_png(tmp_path):
     """A JPEG the decoder takes reads as cv2 reads it (the JPEG cases are
-    in test_torch_port_jpeg.py); one it does not take (arithmetic coding)
-    and an interlaced PNG are refused."""
+    in test_torch_port_jpeg.py); one neither takes (12-bit samples) and
+    an interlaced PNG whose data is short of its seven passes are
+    refused by both (the Adam7 cases are in test_torch_port_png.py)."""
     jpg = str(tmp_path / "a.jpg")
     cv2.imwrite(jpg, np.arange(8 * 8 * 3, dtype=np.uint8).reshape(8, 8, 3))
     np.testing.assert_array_equal(imgproc.imread_rgb(jpg), _cv2_rgb(jpg))
     data = bytearray(open(jpg, "rb").read())
-    data[data.index(b"\xff\xc0") + 1] = 0xC9  # SOF9: arithmetic coding
+    data[data.index(b"\xff\xc0") + 4] = 12  # P: 12-bit samples
     open(jpg, "wb").write(bytes(data))
+    assert cv2.imread(jpg) is None
     with pytest.raises(ValueError, match="JPEG"):
         imgproc.imread_rgb(jpg)
     png = str(tmp_path / "i.png")
@@ -311,6 +313,7 @@ def test_imread_refuses_jpeg_and_interlaced_png(tmp_path):
     data = bytearray(open(png, "rb").read())
     data[28] = 1  # IHDR interlace method: Adam7
     open(png, "wb").write(bytes(data))
+    assert cv2.imread(png) is None
     with pytest.raises(ValueError, match="interlaced"):
         io.read_png_rgb(png)
     assert os.path.exists(png)

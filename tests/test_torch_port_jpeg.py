@@ -15,7 +15,16 @@ path), cv2.COLOR_BGR2RGB)`.
   patterns, RGB by Adobe flag or component ids, no DHT (Annex K
   tables), a DQT redefined between scans;
 - EXIF orientations 1-8 in both byte orders, and which APP1 cv2 takes;
-- what it refuses (truncated data, SOF3, SOF9, 4 components) and what it
+- the processes and colour spaces cv2 reads past baseline, each written
+  by `jpeg_craft` and held to cv2 or to refusing as cv2 refuses:
+  arithmetic coding (SOF9, SOF10: DAC tables, restarts, successive
+  approximation), lossless (SOF3: predictors 1-7, point transforms,
+  precisions 2-16, restarts, non-interleaved scans; grey, YCbCr and YCCK
+  lossless refused), 12-bit samples and 2 components (refused), 4
+  components (Adobe CMYK and YCCK, 1x1 and 2x2 sampling, a seeded sweep
+  of CMYK values), and arithmetic and Huffman codings of the same
+  coefficients decoded to the same bytes without cv2;
+- what it refuses (truncated data, hierarchical, 12-bit) and what it
   skips as libjpeg does (fill bytes, bytes before a marker, no EOI);
 - the JAX package's datasets, test set and grain records against the
   port's on a JPEG split, and `certify.score` on one.
@@ -35,7 +44,8 @@ import numpy as np
 import pytest
 
 from jpeg_craft import (blocks_shape, exif_app1, find_marker,
-                        insert_after_soi, segment, write_jpeg)
+                        insert_after_soi, lossless_shape, segment, write_jpeg, write_jpeg_arith,
+                        write_lossless)
 from mergenet_tpu_torch.data import imgproc, jpeg
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -67,7 +77,7 @@ def _assert_reads_as_cv2(data, tmp_path, name="a.jpg"):
 # ------------------------------------------------------ committed files
 
 def test_committed_digests_equal_cv2():
-    assert len(DIGESTS) == 62
+    assert len(DIGESTS) == 70
     for rel, d in DIGESTS.items():
         img = _cv2_read(os.path.join(FIXJ, rel))
         assert [list(img.shape), _sha(img)] == [d["shape"], d["sha256"]], rel
@@ -78,6 +88,20 @@ def test_committed_file_decodes_bit_equal(rel):
     img = imgproc.imread_rgb(os.path.join(FIXJ, rel))
     assert list(img.shape) == DIGESTS[rel]["shape"]
     assert _sha(img) == DIGESTS[rel]["sha256"]
+
+
+def test_committed_arithmetic_transcodings_equal_their_huffman_files():
+    pairs = {rel: d["transcoded_from"] for rel, d in DIGESTS.items()
+             if "transcoded_from" in d}
+    assert len(pairs) == 4
+    for rel, src in pairs.items():
+        with open(os.path.join(FIXJ, rel), "rb") as f:
+            head = f.read()
+        head = head[:head.index(b"\xff\xda")]
+        assert (b"\xff\xca" if "prog" in rel else b"\xff\xc9") in head
+        np.testing.assert_array_equal(
+            imgproc.imread_rgb(os.path.join(FIXJ, rel)),
+            imgproc.imread_rgb(os.path.join(FIXJ, src)), err_msg=rel)
 
 
 # ----------------------------------------------------- cv2's encodings
@@ -264,28 +288,318 @@ def test_exif_segment_cv2_takes(tmp_path):
     assert got.shape == (120, 200, 3)  # after the first scan: not read
 
 
+# ------------------------------------ past baseline: what cv2 reads, step 0
+
+def _both(data, tmp_path, name="c.jpg"):
+    """(cv2's RGB or None, the port's RGB or its ValueError) of `data`."""
+    path = str(tmp_path / name)
+    with open(path, "wb") as f:
+        f.write(data)
+    try:
+        got = imgproc.imread_rgb(path)
+    except ValueError as e:
+        assert path in str(e)
+        got = e
+    return _cv2_read(path), got
+
+
+def _assert_both_refuse(data, tmp_path, cause):
+    ref, got = _both(data, tmp_path)
+    assert ref is None
+    assert isinstance(got, ValueError) and cause in str(got), got
+
+
+def _mixed_coefs(rng, comps, W, H):
+    """Coefficients of every size: mostly small, DCs spread, a few past
+    the inverse DCT's 16-bit lanes."""
+    out = []
+    for k in range(len(comps)):
+        shape = blocks_shape(comps, k, W, H)
+        c = np.round(rng.standard_normal(shape + (8, 8)) * 3).astype(int)
+        c[..., 0, 0] = rng.integers(-400, 400, shape)
+        big = rng.random(shape + (8, 8)) < 0.02
+        c[big] = rng.integers(-2000, 2000, int(big.sum()))
+        out.append(c)
+    return out
+
+
+#: (sampling factors, progressive, restart interval, DAC tables)
+ARITH = [
+    (((1, 1),), False, 0, None),
+    (((2, 2), (1, 1), (1, 1)), False, 0, None),
+    (((2, 2), (1, 1), (1, 1)), False, 3, {(0, 0): (2, 5), (1, 0): 2}),
+    (((2, 1), (1, 1), (1, 1)), False, 1, {(0, 0): (0, 0), (0, 1): (3, 3),
+                                         (1, 0): 63, (1, 1): 0}),
+    (((1, 1),), True, 2, {(0, 0): (1, 9), (1, 0): 20}),
+    (((2, 2), (1, 1), (1, 1)), True, 0, None),
+    (((1, 2), (1, 1), (1, 1)), True, 5, {(0, 1): (4, 12), (1, 1): 1}),
+    (((1, 1), (1, 1), (1, 1)), True, 0, {(0, 0): (15, 15), (1, 0): 255}),
+]
+
+
+@pytest.mark.parametrize("case", ARITH, ids=[
+    "%s-%s%s%s" % ("".join("%d%d" % f for f in p), "prog" if g else "seq",
+                   "-r%d" % r if r else "", "-dac" if d else "")
+    for p, g, r, d in ARITH])
+def test_arithmetic_decodes_as_cv2(case, tmp_path):
+    """SOF9 and SOF10 at each sampling, with and without DAC tables and
+    restart intervals: the port equals cv2, and both equal the decode
+    of the same coefficients Huffman-coded."""
+    pattern, prog, rst, dac = case
+    rng = np.random.default_rng(len(pattern) * 100 + rst)
+    comps = [(h, v, min(k, 1)) for k, (h, v) in enumerate(pattern)]
+    W, H = int(rng.integers(1, 60)), int(rng.integers(1, 45))
+    coefs = _mixed_coefs(rng, comps, W, H)
+    qt = {0: rng.integers(1, 30, 64), 1: rng.integers(1, 30, 64)}
+    data = write_jpeg_arith(comps, W, H, coefs, qt, progressive=prog,
+                            restart=rst, dac=dac)
+    ref, got = _both(data, tmp_path)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(
+        got, jpeg.decode_jpeg(write_jpeg(comps, W, H, coefs, qt, sof=0xC1,
+                                         restart=rst)))
+
+
+#: (components, scan script) of the coding pairs
+PAIRS = [
+    (1, None), (3, None), (4, None),
+    (3, [((0, 1, 2), 0, 0, 0, 2), ((0,), 1, 63, 0, 3), ((1,), 1, 63, 0, 0),
+         ((2,), 1, 9, 0, 0), ((2,), 10, 63, 0, 0), ((0, 1, 2), 0, 0, 2, 1),
+         ((0,), 1, 63, 3, 2), ((0, 1, 2), 0, 0, 1, 0), ((0,), 1, 63, 2, 1),
+         ((0,), 1, 63, 1, 0)]),
+]
+
+
+@pytest.mark.parametrize("n,scans", PAIRS, ids=["1", "3", "4", "3-sa"])
+def test_arithmetic_and_huffman_codings_decode_equal(n, scans):
+    """Needs no cv2: the same quantised coefficients, Huffman-coded
+    (SOF1) and arithmetic-coded (sequential, and progressive by
+    libjpeg's script or by one with deeper successive approximation),
+    decode to the same bytes."""
+    rng = np.random.default_rng(n)
+    comps = [(2, 2, 0), (1, 1, 1), (1, 1, 1), (2, 1, 0)][:n]
+    if n == 1:
+        comps = [(1, 1, 0)]
+    for W, H in ((1, 1), (37, 29), (64, 16)):
+        coefs = _mixed_coefs(rng, comps, W, H)
+        qt = {0: rng.integers(1, 40, 64), 1: rng.integers(1, 40, 64)}
+        ref = jpeg.decode_jpeg(write_jpeg(comps, W, H, coefs, qt, sof=0xC1,
+                                          adobe=2 if n == 4 else None))
+        for prog in (False, True):
+            data = write_jpeg_arith(
+                comps, W, H, coefs, qt, progressive=prog, restart=W % 4,
+                scans=scans if prog else None, adobe=2 if n == 4 else None)
+            np.testing.assert_array_equal(jpeg.decode_jpeg(data), ref)
+
+
+@pytest.mark.parametrize("predictor", range(1, 8))
+def test_lossless_decodes_as_cv2(predictor, tmp_path):
+    """SOF3 RGB (Adobe transform 0, or ids R G B) with each predictor, at
+    point transforms 0-3, 1x1 and subsampled components, restart
+    intervals of whole MCU rows: cv2's samples << Pt, replicated."""
+    rng = np.random.default_rng(predictor)
+    for pt, pattern, markers, rows in (
+            (0, ((1, 1), (1, 1), (1, 1)), dict(adobe=0), 0),
+            (predictor % 4, ((2, 2), (1, 1), (1, 1)), dict(adobe=0), 1),
+            (1, ((1, 1), (2, 1), (1, 2)), dict(ids=[82, 71, 66]), 2),
+            (3, ((1, 1),) * 4, {}, 3)):
+        comps = [(h, v, 0) for h, v in pattern]
+        W, H = int(rng.integers(1, 40)), int(rng.integers(1, 30))
+        samples = [rng.integers(0, 256, lossless_shape(comps, k, W, H))
+                   for k in range(len(comps))]
+        per_row = -(-W // max(h for h, _ in pattern))
+        data = write_lossless(comps, W, H, samples, predictor=predictor,
+                              pt=pt, restart=rows * per_row, jfif=False,
+                              **markers)
+        ref, got = _both(data, tmp_path)
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("precision", range(2, 17))
+def test_lossless_precision_as_cv2(precision, tmp_path):
+    """2- to 8-bit lossless samples read unscaled (a 5-bit file's values
+    stay below 32); 9- to 16-bit files are refused by both."""
+    rng = np.random.default_rng(precision)
+    comps = [(1, 1, 0)] * 3
+    samples = [rng.integers(0, 1 << precision, (11, 13)) for _ in range(3)]
+    data = write_lossless(comps, 13, 11, samples, precision=precision,
+                          predictor=precision % 7 + 1,
+                          pt=min(2, precision - 1), jfif=False, adobe=0)
+    if precision > 8:
+        _assert_both_refuse(data, tmp_path, "%d-bit lossless" % precision)
+        return
+    ref, got = _both(data, tmp_path)
+    np.testing.assert_array_equal(got, ref)
+    assert int(got.max()) < 1 << precision
+
+
+def test_lossless_non_interleaved_scans_as_cv2(tmp_path):
+    """One scan per component (and a scan of two), with restarts every
+    row or two: a restart inside an iMCU row of a component with v > 1
+    makes that iMCU row's first row the 1-D row, as libjpeg decodes."""
+    rng = np.random.default_rng(11)
+    for pattern, scans, every in (
+            (((1, 2), (1, 1), (1, 1)), [(0,), (1,), (2,)], 1),
+            (((2, 2), (1, 1), (2, 1)), [(0,), (1, 2)], 2),
+            (((1, 3), (1, 1), (1, 1), (1, 3)), [(0,), (1,), (2,), (3,)], 1),
+            (((1, 1), (1, 1), (1, 1)), [(2,), (0,), (1,)], 3)):
+        comps = [(h, v, 0) for h, v in pattern]
+        W, H = int(rng.integers(2, 30)), int(rng.integers(2, 30))
+        samples = [rng.integers(0, 256, lossless_shape(comps, k, W, H))
+                   for k in range(len(comps))]
+        own = -(-W * pattern[0][0] // max(h for h, _ in pattern))
+        data = write_lossless(comps, W, H, samples, predictor=4,
+                              restart=every * own, scans=scans, jfif=False,
+                              adobe=0 if len(comps) == 3 else None)
+        ref, got = _both(data, tmp_path)
+        if isinstance(got, ValueError):  # libjpeg's rule: whole MCU rows
+            assert ref is None and "restart interval" in str(got)
+            continue
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_lossless_refused_as_cv2(tmp_path):
+    """What cv2 does not read in lossless mode, the port refuses: grey,
+    YCbCr and YCCK (no colour conversion in lossless mode), 2
+    components, restarts that are not whole MCU rows, predictor 0, and
+    lossless arithmetic coding (SOF11)."""
+    rng = np.random.default_rng(5)
+
+    def ll(n, **kw):
+        comps = [(1, 1, 0)] * n
+        return write_lossless(comps, 10, 6, [rng.integers(0, 256, (6, 10))
+                                             for _ in range(n)], **kw)
+    _assert_both_refuse(ll(1), tmp_path, "lossless JPEG in grey")
+    _assert_both_refuse(ll(3), tmp_path, "lossless JPEG in YCbCr")
+    _assert_both_refuse(ll(4, jfif=False, adobe=2), tmp_path,
+                        "lossless JPEG in YCCK")
+    _assert_both_refuse(ll(2, jfif=False), tmp_path,
+                        "2-component JPEG")
+    _assert_both_refuse(ll(3, jfif=False, adobe=0, restart=3), tmp_path,
+                        "restart interval 3")
+    data = bytearray(ll(3, jfif=False, adobe=0))
+    sos = data.index(b"\xff\xda")
+    data[sos + 11] = 0  # Ss: predictor 0
+    _assert_both_refuse(bytes(data), tmp_path, "bad lossless JPEG scan")
+    data = bytearray(ll(3, jfif=False, adobe=0))
+    data[data.index(b"\xff\xc3") + 1] = 0xCB
+    _assert_both_refuse(bytes(data), tmp_path, "SOF11")
+
+
+@pytest.mark.parametrize("marker", [0xC1, 0xC2, 0xC9, 0xCA],
+                         ids=["SOF1", "SOF2", "SOF9", "SOF10"])
+def test_twelve_bit_refused_as_cv2(marker, tmp_path):
+    """12-bit samples: cv2 reads none of them (nor does the port)."""
+    rng = np.random.default_rng(marker)
+    comps = [(2, 2, 0), (1, 1, 1), (1, 1, 1)]
+    coefs = _mixed_coefs(rng, comps, 21, 17)
+    qt = {0: rng.integers(1, 30, 64), 1: rng.integers(1, 30, 64)}
+    if marker in (0xC1, 0xC9):
+        write = write_jpeg if marker == 0xC1 else write_jpeg_arith
+        data = write(comps, 21, 17, coefs, qt, precision=12,
+                     **({"sof": 0xC1} if marker == 0xC1 else {}))
+    elif marker == 0xCA:
+        data = write_jpeg_arith(comps, 21, 17, coefs, qt, progressive=True,
+                                precision=12)
+    else:  # a progressive Huffman file of cv2's, its precision made 12
+        data = bytearray(_bench_jpeg(progressive=1))
+        data[data.index(b"\xff\xc2") + 4] = 12
+        data = bytes(data)
+    _assert_both_refuse(data, tmp_path, "12-bit JPEG")
+
+
+#: (sampling factors, Adobe transform or None, JFIF marker)
+FOUR = [
+    (((1, 1),) * 4, 0, False), (((1, 1),) * 4, 2, False),
+    (((1, 1),) * 4, None, False), (((1, 1),) * 4, 1, False),
+    (((1, 1),) * 4, None, True),
+    (((2, 2), (1, 1), (1, 1), (2, 2)), 0, False),
+    (((2, 2), (1, 1), (1, 1), (2, 2)), 2, False),
+    (((2, 2), (1, 1), (1, 1), (1, 1)), 2, True),
+    (((1, 2), (2, 1), (1, 1), (2, 2)), None, False),
+]
+
+
+@pytest.mark.parametrize("case", FOUR, ids=[
+    "%s-%s%s" % ("".join("%d%d" % f for f in p), "none" if a is None
+                 else "adobe%d" % a, "-jfif" if j else "")
+    for p, a, j in FOUR])
+def test_four_components_as_cv2(case, tmp_path):
+    """4 components: CMYK with Adobe transform 0 or no Adobe marker (a
+    JFIF marker changes nothing), YCCK with transform 2 (and 1, which
+    libjpeg takes for YCCK), at 1x1 and 2x2 sampling."""
+    pattern, adobe, jfif = case
+    rng = np.random.default_rng(len(pattern) + (adobe or 7))
+    comps = [(h, v, min(k, 1)) for k, (h, v) in enumerate(pattern)]
+    for W, H in ((1, 1), (int(rng.integers(2, 50)), int(rng.integers(2, 40)))):
+        coefs = _mixed_coefs(rng, comps, W, H)
+        qt = {0: rng.integers(1, 20, 64), 1: rng.integers(1, 20, 64)}
+        data = write_jpeg(comps, W, H, coefs, qt, jfif=jfif, adobe=adobe)
+        ref, got = _both(data, tmp_path)
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_cmyk_to_rgb_sweep_as_cv2(tmp_path):
+    """cv2's CMYK -> BGR, R = K - ((255 - C) * K >> 8), found with a
+    seeded sweep of (C, M, Y, K): flat 8x8 blocks at 4:4:4 with unit
+    quantisation decode to exactly the chosen values."""
+    rng = np.random.default_rng(16)
+    t = rng.integers(0, 256, (1024, 4))
+    t[:256] = np.arange(256)[:, None]
+    t[256:384, 3], t[384:512, 3] = 255, 0
+    comps = [(1, 1, 0)] * 4
+    coefs = []
+    for k in range(4):
+        c = np.zeros((16, 64, 8, 8), int)
+        c[..., 0, 0] = (8 * (t[:, k] - 128)).reshape(16, 64)
+        coefs.append(c)
+    data = write_jpeg(comps, 512, 128, coefs, {0: np.ones(64, int)},
+                      jfif=False, adobe=0)
+    ref, got = _both(data, tmp_path)
+    np.testing.assert_array_equal(got, ref)
+    c, m, y, k = t.T
+
+    def ink(v):
+        return k - ((255 - v) * k >> 8)
+    np.testing.assert_array_equal(got[::8, ::8].reshape(-1, 3),
+                                  np.stack([ink(c), ink(m), ink(y)], 1))
+
+
+def test_two_components_refused_as_cv2(tmp_path):
+    rng = np.random.default_rng(2)
+    comps = [(1, 1, 0), (1, 1, 0)]
+    for kw in (dict(jfif=False), dict(jfif=True)):
+        data = write_jpeg(comps, 9, 7, _mixed_coefs(rng, comps, 9, 7),
+                          {0: rng.integers(1, 20, 64)}, **kw)
+        _assert_both_refuse(data, tmp_path, "2-component JPEG")
+
+
 # ----------------------------------------------------- refused, skipped
 
 def test_refuses_what_it_does_not_decode(tmp_path):
-    """Each raises ValueError naming the file and the cause.  (cv2.imdecode
-    returns None for the cut files, where cv2.imread pads them with grey
-    after libjpeg's warning; libjpeg-turbo 3 decodes SOF3, SOF9 and
-    4-component files, which the port does not.)"""
+    """Each raises ValueError naming the file and the cause: the
+    processes cv2 does not read either (hierarchical, 12-bit; the
+    lossless, 2-component and 12-bit cases are held to cv2's refusals
+    above) and, on purpose, cut or corrupt data, where cv2.imdecode
+    returns None for the cut Huffman files and cv2.imread pads them with
+    grey after libjpeg's warning (it pads cut arithmetic-coded data with
+    zero bytes)."""
     base = _bench_jpeg()
     sof = find_marker(base, 0xC0)
-    end = sof + 2 + int.from_bytes(base[sof + 2:sof + 4], "big")
 
     def with_sof(m):
         return base[:sof + 1] + bytes([m]) + base[sof + 2:]
-    four = (b"\xff\xc0" + (20).to_bytes(2, "big") + base[sof + 4:sof + 9]
-            + b"\x04" + base[sof + 10:end] + b"\x04\x11\x00")
     prog = _bench_jpeg(progressive=1)
-    cases = {"lossless": with_sof(0xC3), "arithmetic": with_sof(0xC9),
-             "hierarchical": with_sof(0xC5),
-             "CMYK": base[:sof] + four + base[end:],
+    rng = np.random.default_rng(0)
+    comps = [(2, 2, 0), (1, 1, 1), (1, 1, 1)]
+    arith = write_jpeg_arith(comps, 64, 48, _mixed_coefs(rng, comps, 64, 48),
+                             {0: rng.integers(1, 9, 64),
+                              1: rng.integers(1, 9, 64)})
+    cases = {"hierarchical": with_sof(0xC5),
              "12-bit": base[:sof + 4] + b"\x0c" + base[sof + 5:],
              "premature end": base[:len(base) // 2],
              "premature end|truncated": prog[:len(prog) * 2 // 3],
+             "premature end of data segment": arith[:len(arith) // 2],
              "expected restart marker": _bench_jpeg(rst_interval=2).replace(
                  b"\xff\xd1", b"\xff\xd3", 1),
              # over cv2's 2^30 pixels; a header far larger than its data
