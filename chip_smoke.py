@@ -46,8 +46,10 @@ after:
   `run_segmentation_device(mode="hier")` on the card (floodscan,
   absorb, tgather) and on the CPU, and their mask-AP;
 - the data slice: the certification dataset regenerated by the port's
-  generator (`data/synthetic.py`), held equal to the committed val json
-  and bench images;
+  generator (`data/synthetic.py`) in a child process started before the
+  train phase (with the containers split written after it there), held
+  equal to the committed val json and bench images when the jpeg phase
+  joins it;
 - JPEG reading: the port's decoder (`data/jpeg.py`, host C++ built
   with g++) on the committed JPEGs (arithmetic-coded, lossless, CMYK
   and YCCK files among them) and an Adam7 PNG against cv2's digests,
@@ -68,6 +70,14 @@ after:
   decodes of images 0-7 (`certify.score`; floodscan, absorb, tgather),
   hier mask-AP against the JAX package's, the exact masks against the
   JAX package's exact masks of those images;
+- containers: the port's raster readers (`data/{tiff,bmp,pxm,sunras,
+  hdr,gif}.py`, host C++ `data/native/codecs.cc` built with g++ beside
+  the JPEG decoder) on the committed `tests/fixtures/images` against
+  cv2's digests, procedure (c)'s hier column scored from the 50 val
+  images written in a rotation of lossless TIFF, BMP, PPM, PAM and Sun
+  raster layouts (`tests/container_craft.py`; floodscan, absorb,
+  tgather), every read held to the PNG pixels and the AP to (c)'s,
+  and the host's ms per 512x1024 image for each layout;
 - certification (d): seed 0 trained on the regenerated data through the
   port's loader (`data/pipeline.py`, `certify.train_seed`), 24 epochs,
   then scored with hier decodes;
@@ -99,21 +109,23 @@ even number of cards (2 or more): the steps and serving on
 Every check raises; the exit code is 0 only when all phases pass.
 Prints one line per phase, `train {...}`, `zoo {...}`,
 `class_inference {...}`, `staged {...}`, `data {...}`, `jpeg {...}`,
-`converter {...}`, `certification_c {...}`, `certification_d {...}`,
+`converter {...}`, `certification_c {...}`, `containers {...}`,
+`certification_d {...}`,
 `recipes {...}`, `spatial {...}` and `train_aux {...}` lines
 (times, throughput, peak memory, FLOPs, shares of the bf16 peak), the
 new phases' spans (`utils/profiling.Stopwatch`), the summary, then the
 card, the kernels line, and last `{"ok": true, "device": {...}}`.
 
 Needs a CUDA device and the repository around it (the port,
-tests/fixtures/certification512 and the tests' shared data makers in
-tests/torch_port_helpers.py); imports torch, numpy, scipy (the
+tests/fixtures/certification512 and images, the tests' shared data
+makers in tests/torch_port_helpers.py and the containers' writer in
+tests/container_craft.py); imports torch, numpy, scipy (the
 converter phase), pytest (through those helpers) and the standard
 library besides the port.  Writes nothing outside
 mergenet_tpu_torch/_build/ (the train phase's checkpoints, the synthetic
 caffemodel, the inference phases' maps, the regenerated dataset, the
-converter's tree and json, the trained seed, the recipes'
-experiments and the spatial ranks' files go there).
+converter's tree and json, the containers split, the trained seed,
+the recipes' experiments and the spatial ranks' files go there).
 """
 
 import json
@@ -124,6 +136,8 @@ import time
 
 T0 = time.perf_counter()
 LIMIT_S = 600  # wall-clock guard for the whole run
+#: stops for the child processes main() starts, run however it ends
+_STOPS = []
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(HERE, "tests", "fixtures", "certification512")
 sys.path.insert(0, os.path.join(HERE, "tests"))
@@ -1378,26 +1392,100 @@ def train_aux_phase(drive, smi, sw):
     return out
 
 
-def data_phase(smi, sw):
-    """The certification dataset regenerated by the port's generator
-    (`certify.regenerate`) under `_build/cert_data`: its val
-    json must equal the committed val_ann.json and its first four val
-    images the committed bench_img*.png.  Returns (readings, data
-    directory)."""
-    import json
-    import shutil
+def _data_child(data_dir, container_dir, out):
+    """The data phase's host work, in a child process at the lowest
+    priority: the certification dataset regenerated into `data_dir`
+    (`certify.regenerate`, whose two worker processes inherit the
+    priority), then the 50 val images written into `container_dir` in a
+    rotation of `container_craft.LAYOUTS`, with the val json naming
+    them; writes {seconds, images, container_write_s, files: {name:
+    layout, shape, sha256 of the PNG's pixels}} to `out`."""
+    os.nice(19)  # the card phases it runs beside keep the host's cores
+    sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+    import hashlib
 
-    import numpy as np
-
+    import container_craft as cc
     from mergenet_tpu_torch import certify as CT
     from mergenet_tpu_torch import io
 
-    data_dir = os.path.join(HERE, "mergenet_tpu_torch", "_build",
-                            "cert_data")
-    shutil.rmtree(data_dir, ignore_errors=True)
-    with sw.span("data generate"):
-        _, n = CT.regenerate(data_dir)
-    gen_s = sw.totals["data generate"]
+    gen_s, n = CT.regenerate(data_dir)
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(container_dir, "val"))
+    os.makedirs(os.path.join(container_dir, "annotations"))
+    with open(os.path.join(data_dir, "annotations",
+                           "instancesonly_val.json")) as f:
+        ann = json.load(f)
+    files = {}
+    for k, im in enumerate(ann["images"]):
+        rgb = io.read_png_rgb(os.path.join(data_dir, "val",
+                                           im["file_name"]))
+        layout, ext = cc.LAYOUTS[k % len(cc.LAYOUTS)]
+        im["file_name"] = os.path.splitext(im["file_name"])[0] + ext
+        cc.write_layout(os.path.join(container_dir, "val", im["file_name"]),
+                        rgb, layout)
+        files[im["file_name"]] = {
+            "layout": layout, "shape": list(rgb.shape),
+            "sha256": hashlib.sha256(rgb.tobytes()).hexdigest()}
+    with open(os.path.join(container_dir, "annotations",
+                           "instancesonly_val.json"), "w") as f:
+        json.dump(ann, f)
+    with open(out, "w") as f:
+        json.dump({"seconds": gen_s, "images": n,
+                   "container_write_s": time.perf_counter() - t0,
+                   "files": files}, f)
+
+
+def data_start():
+    """Spawn `_data_child` into `_build/cert_data` and
+    `_build/container_data` (both emptied first); `data_phase` joins it.
+    Returns the run's state."""
+    import multiprocessing
+    import shutil
+
+    build = os.path.join(HERE, "mergenet_tpu_torch", "_build")
+    run = {"data_dir": os.path.join(build, "cert_data"),
+           "container_dir": os.path.join(build, "container_data"),
+           "out": os.path.join(build, "data_child.json")}
+    for d in (run["data_dir"], run["container_dir"]):
+        shutil.rmtree(d, ignore_errors=True)
+    if os.path.exists(run["out"]):
+        os.unlink(run["out"])
+    os.makedirs(build, exist_ok=True)
+    run["proc"] = multiprocessing.get_context("spawn").Process(
+        target=_data_child, args=(run["data_dir"], run["container_dir"],
+                                  run["out"]))
+    run["t_start"] = time.perf_counter()
+    run["proc"].start()
+    return run
+
+
+def data_stop(run):
+    """Kill and join the data child if it is still alive."""
+    if run["proc"].is_alive():
+        run["proc"].kill()
+        run["proc"].join()
+
+
+def data_phase(smi, sw, run):
+    """Join the child `data_start` started before the train phase: the
+    certification dataset regenerated by the port's generator
+    (`certify.regenerate`) under `_build/cert_data`, whose val json must
+    equal the committed val_ann.json and whose first four val images the
+    committed bench_img*.png, and the containers split.  Returns
+    (readings, data directory)."""
+    import numpy as np
+
+    from mergenet_tpu_torch import io
+
+    data_dir = run["data_dir"]
+    with sw.span("data wait"):
+        run["proc"].join()
+    if run["proc"].exitcode != 0:
+        raise AssertionError("the data child process exited with %s"
+                             % run["proc"].exitcode)
+    with open(run["out"]) as f:
+        child = json.load(f)
+    gen_s, n = child["seconds"], child["images"]
     ann = os.path.join(data_dir, "annotations", "instancesonly_val.json")
     ref_path = os.path.join(FIX, "val_ann.json")
     with open(ann) as f, open(ref_path) as g:
@@ -1408,36 +1496,45 @@ def data_phase(smi, sw):
         data_dir, "val", "val_%05d.png" % k)), ref))
         for k, ref in enumerate(bench_images())]
     out = {"seconds": gen_s, "images": n, "images_per_s": n / gen_s,
+           "container_write_s": child["container_write_s"],
+           "child_s": time.perf_counter() - run["t_start"],
+           "waited_s": sw.totals["data wait"],
            "val_json_equal": json_equal, "val_json_bytes_equal": bytes_equal,
            "bench_images_equal": imgs_equal}
-    print("  %d images of 512x1024 in %.2f s (%.2f images/s on the host); "
-          "val json equal to val_ann.json: %s (bytes: %s); val_00000-00003 "
-          "equal to bench_img*.png: %s" % (n, gen_s, n / gen_s, json_equal,
-                                          bytes_equal, imgs_equal),
+    print("  %d images of 512x1024 in %.2f s (%.2f images/s on the host, "
+          "in a child process started before the train phase; the "
+          "containers split written after it in %.2f s; %.2f s waited "
+          "here); val json equal to val_ann.json: %s (bytes: %s); "
+          "val_00000-00003 equal to bench_img*.png: %s" % (
+              n, gen_s, n / gen_s, child["container_write_s"],
+              out["waited_s"], json_equal, bytes_equal, imgs_equal),
           flush=True)
     if not json_equal or not all(imgs_equal):
         raise AssertionError("the regenerated dataset differs from the "
                              "committed fixtures")
+    run["files"] = child["files"]
     return out, data_dir
 
 
 def start_jpeg_build():
-    """The JPEG decoder's g++ build (`data/native/jpeg.cc`) in a thread,
-    started once the kernels' nvcc build is done, so that it runs beside
-    the card phases that follow; returns (thread, result dict), which the
-    jpeg phase joins (the dict holds build_s, None when the library was
-    already built, or the error)."""
+    """The g++ builds of the JPEG decoder (`data/native/jpeg.cc`) and
+    then of the raster decompressors (`data/native/codecs.cc`) in a
+    thread, started once the kernels' nvcc build is done, so that they
+    run beside the card phases that follow; returns (thread, result
+    dict), which the jpeg phase joins (the dict holds build_s and
+    codecs_build_s, None for a library already built, or the error)."""
     import threading
 
-    from mergenet_tpu_torch.data import jpeg
+    from mergenet_tpu_torch.data import codecs, jpeg
     result = {}
 
     def run():
         try:
-            built = not os.path.exists(jpeg.library_path())
-            t0 = time.perf_counter()
-            jpeg.build()
-            result["build_s"] = time.perf_counter() - t0 if built else None
+            for key, mod in (("build_s", jpeg), ("codecs_build_s", codecs)):
+                built = not os.path.exists(mod.library_path())
+                t0 = time.perf_counter()
+                mod.build()
+                result[key] = time.perf_counter() - t0 if built else None
         except BaseException as e:  # re-raised by the jpeg phase
             result["error"] = e
 
@@ -1486,6 +1583,7 @@ def jpeg_phase(drive, paths, smi, sw, data_dir, build=None):
     if "error" in built:
         raise built["error"]
     build_s = built["build_s"]
+    codecs_build_s = built["codecs_build_s"]
     blobs = {}
     for rel in digests:
         with open(os.path.join(fixj, rel), "rb") as f:
@@ -1518,11 +1616,14 @@ def jpeg_phase(drive, paths, smi, sw, data_dir, build=None):
     val_bytes = sum(len(blobs[r]) for r in val)
     ms_img = val_s / len(val) * 1e3
     mb_s = val_bytes / val_s / 1e6
-    print("  decoder %s (g++, after the nvcc build; %.2f s waited here); "
+    print("  decoder %s, codecs %s (g++, after the nvcc build; %.2f s "
+          "waited here); "
           "%d files decoded, %d differ from cv2's digest; 512x1024 q90 "
           "4:2:0: %.3f ms per image, %.2f MB/s of JPEG, %.2f Mpixel/s "
           "(host, %s)" % (
               "cached" if build_s is None else "built in %.2f s" % build_s,
+              "cached" if codecs_build_s is None
+              else "built in %.2f s" % codecs_build_s,
               sw.totals["jpeg build"], len(blobs), len(wrong), ms_img, mb_s,
               512 * 1024 * len(val) / val_s / 1e6, smi), flush=True)
     if wrong:
@@ -1672,7 +1773,7 @@ def jpeg_phase(drive, paths, smi, sw, data_dir, build=None):
     return {"files": len(blobs), "differ": wrong,
             "transcodings_equal_huffman": pairs,
             "coding_ms_per_512x1024": coding_ms, "fixtures_s": fixtures_s,
-            "build_s": build_s,
+            "build_s": build_s, "codecs_build_s": codecs_build_s,
             "decode_ms_per_512x1024": ms_img, "decode_mb_per_s": mb_s,
             "ap": ap, "jax_ap": jref, "png_jax_ap": png,
             "ap_minus_png": [ap[0] - png[0], ap[1] - png[1]],
@@ -2036,6 +2137,120 @@ def cert_c_phase(drive, smi, sw, data_dir):
             "overflow": r["overflow"], "times_s": r["times_s"],
             "images": r["images"],
             "phase_s": sw.totals["certification (c)"]}
+
+
+def containers_phase(drive, paths, smi, sw, run, cert_c):
+    """The raster containers cv2.imread reads (`data/{tiff,bmp,pxm,
+    sunras,hdr,gif}.py` over `data/native/codecs.cc`, built by
+    `start_jpeg_build`): every committed file of tests/fixtures/images
+    decoded by `imgproc.imread_rgb` and held to cv2's SHA-256
+    (`cv2_digests.json`); procedure (c)'s hier column scored from the 50
+    val images as the data child wrote them in the lossless layouts
+    (`certify.score` on the card: floodscan, absorb and tgather once per
+    image), every read held to the SHA-256 of the same image's PNG
+    pixels, AP and AP50 equal to "certification (c)"'s hier figures of
+    this run and within CERT_JAX_AP_TOL of JAX's; the host's ms per
+    512x1024 image for each layout (JPEG_REPS decodes of one file each,
+    in turns)."""
+    import hashlib
+
+    from mergenet_tpu_torch import certify as CT
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.data import imgproc
+
+    fixi = os.path.join(HERE, "tests", "fixtures", "images")
+    with open(os.path.join(fixi, "cv2_digests.json")) as f:
+        digests = json.load(f)
+    wrong = []
+    with sw.span("containers fixtures"):
+        for rel, d in sorted(digests.items()):
+            img = imgproc.imread_rgb(os.path.join(fixi, rel))
+            if [list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()] \
+                    != [d["shape"], d["sha256"]]:
+                wrong.append(rel)
+    print("  %d committed files (TIFF, BMP, PxM, PAM, PFM, Sun raster, "
+          "HDR, GIF) decoded in %.2f s, %d differ from cv2's digest: %s"
+          % (len(digests), sw.totals["containers fixtures"], len(wrong),
+             wrong), flush=True)
+    if wrong:
+        raise AssertionError("container decodes differ from cv2's: %s"
+                             % wrong)
+
+    cdir, files = run["container_dir"], run["files"]
+    offsets = io.load_offsets(FIX)
+    net = CT.load_bench_net(os.path.join(FIX, "bench_ckpt.npz"),
+                            9 + len(offsets))
+    reads = {}  # what certify.score itself read, against the PNG pixels
+    imread = imgproc.imread_rgb
+
+    def hashed_imread(path):
+        img = imread(path)
+        reads[os.path.basename(path)] = [
+            list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()]
+        return img
+
+    imgproc.imread_rgb = hashed_imread
+    try:
+        with sw.span("containers (c) hier"):
+            r = drive("containers", lambda: CT.score(net, cdir, 9, offsets,
+                                                     ("hier",)),
+                      ("floodscan", "absorb", "tgather"))
+    finally:
+        imgproc.imread_rgb = imread
+    del net
+    reads_equal = reads == {n: [f["shape"], f["sha256"]]
+                            for n, f in files.items()}
+    ap, cref, jref = r["hier"], cert_c["ap"]["hier"], JAX_AP["c"]["hier"]
+    layouts = sorted({f["layout"] for f in files.values()})
+    print("  (c) hier from %d files in %d layouts (%s): AP %.4f AP50 %.4f "
+          "| certification (c) from PNG, this run: AP %.4f AP50 %.4f | JAX "
+          "(CPU): AP %.4f AP50 %.4f; reads equal to the PNG pixels: %s; "
+          "overflow %s, net %.2f s, hier %.2f s" % (
+              len(files), len(layouts), " ".join(layouts), ap[0], ap[1],
+              cref[0], cref[1], jref[0], jref[1], reads_equal,
+              r["overflow"], r["times_s"]["net"], r["times_s"]["hier"]),
+          flush=True)
+    launches = dict(paths["containers"])
+    gates = [("AP and AP50 equal to certification (c)'s",
+              list(ap) == list(cref)),
+             ("AP within %.3f of JAX's" % CERT_JAX_AP_TOL,
+              abs(ap[0] - jref[0]) <= CERT_JAX_AP_TOL),
+             ("AP50 within %.3f of JAX's" % CERT_JAX_AP_TOL,
+              abs(ap[1] - jref[1]) <= CERT_JAX_AP_TOL),
+             ("score's reads of the %d files equal to the PNG pixels"
+              % len(files), reads_equal),
+             ("zero overflow", not any(r["overflow"].values())),
+             ("one launch of each kernel per image",
+              all(launches.get(k) == r["images"]
+                  for k in ("floodscan", "absorb", "tgather")))]
+
+    # host ms per 512x1024 image, one file per layout, decoded in turns
+    first = {}
+    for name, f in sorted(files.items()):
+        first.setdefault(f["layout"], name)
+    spent = dict.fromkeys(first, 0.0)
+    with sw.span("containers timing"):
+        for _ in range(JPEG_REPS):
+            for layout, name in first.items():
+                t0 = time.perf_counter()
+                imgproc.imread_rgb(os.path.join(cdir, "val", name))
+                spent[layout] += time.perf_counter() - t0
+    ms = {layout: spent[layout] / JPEG_REPS * 1e3 for layout in first}
+    print("  ms per 512x1024 image, %d decodes each (host, %s): %s" % (
+        JPEG_REPS, smi, ", ".join("%s %.3f" % kv for kv in sorted(
+            ms.items()))), flush=True)
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        raise AssertionError("containers gates failed: %s" % failed)
+    return {"fixtures": len(digests), "differ": wrong,
+            "files": len(files), "layouts": layouts, "ap": ap,
+            "certification_c_ap": cref, "jax_ap": jref,
+            "reads_equal_png": reads_equal, "overflow": r["overflow"],
+            "times_s": r["times_s"], "launches": launches,
+            "ms_per_512x1024": ms, "reps": JPEG_REPS,
+            "phase_s": sum(sw.totals[k] for k in (
+                "containers fixtures", "containers (c) hier",
+                "containers timing"))}
 
 
 def cert_d_phase(drive, smi, sw, data_dir):
@@ -3584,6 +3799,11 @@ def main():
         raise AssertionError("gather bench: pgather != table[idx]")
 
     # ---- 9. training ----
+    # the data phase's host work (the regeneration, then the containers
+    # split) runs in a child process beside the card phases from here;
+    # the data phase joins it before the jpeg phase
+    data_run = data_start()
+    _STOPS.append(lambda: data_stop(data_run))
     phase("train: PSPFPNet-r50, batch %d, %d^2 crops, alpha %g, float32 "
           "and bf16" % (TRAIN_BATCH, TRAIN_CROP, TRAIN_ALPHA))
     sources = {"floodscan": "floodscan.cu", "absorb": "absorb.cu",
@@ -3617,9 +3837,10 @@ def main():
           "maps -> run_segmentation_device(mode='hier')")
     staged = staged_phase(drive, smi, sw)
     print("staged " + json.dumps({"card": smi, **staged}), flush=True)
-    phase("data: regenerate the certification dataset (data/synthetic.py, "
-          "seed 100, 60 + 50 images of 512x1024)")
-    data, data_dir = data_phase(smi, sw)
+    phase("data: join the regeneration of the certification dataset "
+          "(data/synthetic.py, seed 100, 60 + 50 images of 512x1024) and "
+          "the containers split")
+    data, data_dir = data_phase(smi, sw, data_run)
     print("data " + json.dumps({"card": smi, **data}), flush=True)
     phase("jpeg: the committed JPEGs against cv2's digests, (c) hier from "
           "the q90 JPEGs of the 50 val images, the coco loader on JPEG/PNG")
@@ -3633,6 +3854,13 @@ def main():
           "(hier; exact on images 0-%d)" % (CERT_C_EXACT_IMAGES - 1))
     cert_c = cert_c_phase(drive, smi, sw, data_dir)
     print("certification_c " + json.dumps({"card": smi, **cert_c}),
+          flush=True)
+    phase("containers: the committed TIFF/BMP/PxM/Sun/HDR/GIF files "
+          "against cv2's digests, (c) hier from the 50 val images in %d "
+          "lossless layouts" % len(set(
+              f["layout"] for f in data_run["files"].values())))
+    containers = containers_phase(drive, paths, smi, sw, data_run, cert_c)
+    print("containers " + json.dumps({"card": smi, **containers}),
           flush=True)
     phase("certification (d): train seed 0 through the loader, %d epochs, "
           "then score hier" % CERT_D_EPOCHS)
@@ -3721,6 +3949,7 @@ def main():
                "staged": staged, "train_aux": train_aux, "data": data,
                "certification_c": cert_c, "certification_d": cert_d,
                "recipes": recipes, "converter": converter, "jpeg": jpeg_r,
+               "containers": containers,
                "spatial": spatial,
                "launches_by_path": paths,
                "total_s": time.perf_counter() - T0}
@@ -3735,4 +3964,9 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for stop in _STOPS:
+            stop()
+    sys.exit(code)

@@ -2,7 +2,9 @@
 API, RLE masks and mask-AP, the datasets and loaders, the compact
 training pipeline (`pipeline.py`, the counterpart of the reference's
 grain pipeline), the synthetic generator and cv2's image operations in
-numpy (`imgproc.py`) and its JPEG decoder (`jpeg.py`)."""
+numpy (`imgproc.py`), its JPEG decoder (`jpeg.py`) and its other raster
+readers (`tiff.py`, `bmp.py`, `pxm.py`, `sunras.py`, `hdr.py`, `gif.py`
+over `codecs.py`)."""
 
 from .dataset import (AllDataset, OffsetDataset, ClassDataset, COCOTestset,
                       DataLoader)

@@ -1,7 +1,7 @@
 """COCO-json datasets of the port, a copy of `mergenet_tpu/data/dataset.py`
-without cv2: images (PNG, JPEG) are read by `imgproc.imread_rgb` and
-resized by `imgproc.resize`, which compute what cv2.imread and cv2.resize
-compute, bit for bit.  Crops draw from the same `np.random.RandomState(seed)` as
+without cv2: images (PNG, JPEG, TIFF, BMP, PxM, Sun raster, HDR, GIF)
+are read by `imgproc.imread_rgb` and resized by `imgproc.resize`, which
+compute what cv2.imread and cv2.resize compute, bit for bit.  Crops draw from the same `np.random.RandomState(seed)` as
 the reference's, so equal seeds give equal crops.
 
 Capability parity with the original `utils/dataset.py` (AllDataset /

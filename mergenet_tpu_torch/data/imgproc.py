@@ -5,7 +5,9 @@ The reference's loaders call cv2 (`mergenet_tpu/data/dataset.py:75-80,
 `rle.py:163-171`); the GPU machine has no cv2, PIL or grain.  Each
 function here reproduces what cv2 computes, not an approximation of it:
 
-    imread_rgb(path)             cv2.imread(path) + BGR -> RGB: PNG, JPEG
+    imread_rgb(path)             cv2.imread(path) + BGR -> RGB: PNG, JPEG,
+                                 TIFF, BMP, PBM/PGM/PPM, PAM, PFM, Sun
+                                 raster, Radiance HDR, GIF
     resize(img, (w, h), interpolation)
                                  cv2.resize, INTER_LINEAR (uint8, float32)
                                  and INTER_NEAREST (any dtype)
@@ -41,12 +43,66 @@ function here reproduces what cv2 computes, not an approximation of it:
   point (left ends rounded up, right ends down); an edge that leaves
   the image starts from its clipped end points.
 
-`tests/test_torch_port_data_imgproc.py` holds each against cv2."""
+`tests/test_torch_port_data_imgproc.py` holds each against cv2.
+
+What `cv2.imread` (OpenCV 5.0.0, libtiff 4.7.1, libpng 1.6.58) returns,
+measured on files of `tests/container_craft.py` and cv2's own writers,
+and what `imread_rgb` does (`tests/test_torch_port_{containers,png,
+jpeg}.py` hold each row; PERF.md has the same table):
+
+  container and variant                        cv2.imread          port
+  PNG eXIf orientation 1-8, before/after IDAT  turned (imread),    equal
+    (first good chunk; IFD0 read until the     unturned for
+    data ends)                                 IMREAD_UNCHANGED
+  JPEG Exif APP1 counting past its entries;    turned; passed      equal
+    one with only other tags                   over
+  TIFF II/MM/BigTIFF, strips/tiles, planar     libtiff's RGBA      equal
+    1/2; none, LZW (old, new), Deflate,        route
+    PackBits; predictor 2 (LZW/Deflate)
+  TIFF grey 1/8/16, RGB 8/16 (+alpha),         16-bit grey >> 8,   equal
+    palette 1/4/8, CMYK 8                      RGB (v+128)//257,
+                                               unassociated alpha
+                                               premultiplied
+  TIFF tiles clipped at the right, 2 bytes a   rows skewed (libtiff equal
+    grey pixel or palette + extra              steps in pixels)
+  TIFF Orientation 2-4; 5-8                    turned (tiles: in   equal /
+                                               place); 5-8 square  ValueError
+                                               only, else None
+  TIFF 2-bit, 4-bit not palette, 10-64-bit,    None                ValueError
+    float, 1-bit RGB, > 4 samples, planar
+    palette
+  TIFF JPEG, CCITT, LZMA, ZSTD; YCbCr, Lab     read or not         ValueError
+                                                                   (not yet)
+  BMP core..V5, 1-32 bits, short palettes,     palette past its    equal
+    top-down, RLE8/RLE4                        end black; RLE4
+                                               end-of-bitmap ends
+                                               its row only
+  BMP 16-bit bitfields                         5-5-5/5-6-5 masks   equal /
+                                               read after the      ValueError
+                                               header (V4/V5: None)
+  BMP 32-bit bitfields                         masks from V4/V5    equal
+                                               headers only
+  P1-P6, comments, any maxval                  ASCII scaled,       equal
+                                               binary not, 16-bit
+                                               v >> 8
+  PAM GRAYSCALE, BLACKANDWHITE, RGB, none      RGB reversed;       equal
+                                               maxval 1 as bits
+  PAM GRAYSCALE_ALPHA, RGB_ALPHA               differs run to run  ValueError
+  PFM PF; Pf                                   x / |scale|,        equal /
+                                               rounded; Pf None    ValueError
+  Sun raster types 0, 1, 1-32 bits, maps       as stored           equal
+  Sun raster types 2 (RLE), 3 (RGB)            None                ValueError
+  HDR new RLE, old RLE, flat; -Y h +X w only   rgbe.cpp x 255,     equal
+                                               half to even
+  GIF 87a/89a, tables, interlace,              the first frame     equal
+    transparency, small frames                 over the background
+  WebP, JPEG 2000, AVIF                        read                ValueError
+                                                                   (not yet)"""
 
 import numpy as np
 
 from .. import io
-from . import jpeg
+from . import bmp, gif, hdr, jpeg, pxm, sunras, tiff
 
 INTER_NEAREST = 0
 INTER_LINEAR = 1
@@ -56,25 +112,82 @@ _COEF_SCALE = 1 << _COEF_BITS
 _XY_SHIFT = 16
 
 
+def _is_avif(head):
+    """An ISO BMFF `ftyp` box naming AVIF (avif, avis) as a brand."""
+    if head[4:8] != b"ftyp":
+        return False
+    size = int.from_bytes(head[:4], "big")
+    box = head[8:max(16, min(size, len(head)))]
+    return any(box[i:i + 4] in (b"avif", b"avis")
+               for i in range(0, len(box) - 3, 4))
+
+
+#: (test of the file's first bytes, reader of its bytes, or the name of a
+#: container the port does not yet read), in cv2's findDecoder order
+_DECODERS = (
+    (lambda h: h[:2] == b"BM", bmp.decode_bmp),
+    (lambda h: h.startswith(hdr.SIGNATURES), hdr.decode_hdr),
+    (lambda h: h[:3] == b"\xff\xd8\xff", jpeg.decode_jpeg),
+    (lambda h: h[:4] == b"RIFF" and h[8:12] == b"WEBP", "WebP"),
+    (lambda h: h[:4] == sunras.MAGIC, sunras.decode_sunras),
+    (lambda h: h[:1] == b"P" and h[1:2] in (b"1", b"2", b"3", b"4", b"5",
+                                            b"6") and h[2:3].isspace(),
+     pxm.decode_pnm),
+    (lambda h: h[:2] in (b"PF", b"Pf") and h[2:3].isspace(), pxm.decode_pfm),
+    (tiff.is_tiff, tiff.decode_tiff),
+    (lambda h: h[:8] == b"\x89PNG\r\n\x1a\n", None),
+    (lambda h: h[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+     or h[:4] == b"\xff\x4f\xff\x51", "JPEG 2000"),
+    (lambda h: h[:2] == b"P7" and h[2:3].isspace(), pxm.decode_pam),
+    (lambda h: h[:6] in gif.SIGNATURES, gif.decode_gif),
+    (_is_avif, "AVIF"),
+)
+
+
 def imread_rgb(path):
     """(H, W, 3) uint8 RGB of an image file, as `cv2.imread(path)` then
-    `cv2.cvtColor(img, cv2.COLOR_BGR2RGB)` give it.  PNG of any colour
-    type and bit depth, non-interlaced or Adam7: grey and palette images
-    are expanded, alpha is dropped, 16-bit samples keep their high byte.
-    JPEG (`jpeg.decode_jpeg`): every file cv2 reads (Huffman or
-    arithmetic coding, sequential, progressive or lossless; grey, YCbCr,
-    RGB, CMYK or YCCK), EXIF orientation applied.  Other formats, and
-    the JPEGs cv2 refuses too (12-bit, 2 components, lossless grey or
-    YCbCr, hierarchical), raise ValueError naming the file and the
-    cause, as does truncated or corrupt data."""
+    `cv2.cvtColor(img, cv2.COLOR_BGR2RGB)` give it: the reader is chosen
+    by the file's first bytes, in cv2's order, never by its name.  Each
+    reader's module says what cv2 5.0 does and the port with it; in
+    short (PERF.md's PR 17 table has every variant tested):
+
+        PNG   io.read_png_rgb: every colour type and depth, Adam7; the
+              eXIf orientation applied
+        JPEG  jpeg.decode_jpeg: Huffman or arithmetic, sequential,
+              progressive or lossless; grey, YCbCr, RGB, CMYK, YCCK;
+              EXIF orientation applied
+        TIFF  tiff.decode_tiff: libtiff's RGBA route; II, MM, BigTIFF;
+              strips, tiles, planes; 1-16 bits; grey, RGB, palette,
+              CMYK; none, LZW, Deflate, PackBits, predictor 2; the
+              Orientation tag
+        BMP   bmp.decode_bmp: core to V5 headers; 1-32 bits; RLE8, RLE4,
+              bitfields; top-down
+        PxM   pxm.decode_pnm / decode_pam / decode_pfm: P1-P6 (ASCII,
+              binary, comments, any maxval), P7 without alpha, PF
+        Sun   sunras.decode_sunras: types 0 and 1, 1-32 bits, colour maps
+        HDR   hdr.decode_hdr: -Y +X, run-length or flat RGBE
+        GIF   gif.decode_gif: the first frame, local/global tables,
+              interlace, transparency, the background
+
+    Where cv2 returns None (each module lists those files), this raises
+    ValueError naming the file and the cause; WebP, JPEG 2000 and AVIF,
+    which cv2 reads, raise a ValueError saying the port does not read
+    them yet; so do the TIFF compressions and photometric
+    interpretations `tiff.py` names, and the PAM files with alpha that
+    cv2 reads differently on every call."""
     with open(path, "rb") as f:
-        head = f.read(8)
-    if head[:3] == b"\xff\xd8\xff":
-        with open(path, "rb") as f:
-            return jpeg.decode_jpeg(f.read(), path)
-    if head != b"\x89PNG\r\n\x1a\n":
-        raise ValueError("%s is neither a PNG nor a JPEG file" % path)
-    return io.read_png_rgb(path)
+        data = f.read()
+    for matches, reader in _DECODERS:
+        if not matches(data[:32]):
+            continue
+        if reader is None:
+            return io.read_png_rgb(path)
+        if isinstance(reader, str):
+            raise ValueError("%s: %s, not yet read by the port" % (path,
+                                                                   reader))
+        return reader(data, path)
+    raise ValueError("%s: no image format cv2 reads starts with %r"
+                     % (path, data[:8]))
 
 
 # ---------------------------------------------------------------- resize

@@ -83,8 +83,8 @@
 //
 // C interface: mn_jpeg_decode fills a malloc'd (H, W, 3) RGB buffer that
 // mn_jpeg_free releases, and reports the EXIF orientation (1-8, 0 when
-// absent) of the first well-formed Exif APP1 segment before the first
-// scan; the caller applies it.
+// absent) of the first Exif APP1 segment before the first scan whose
+// IFD0 has a readable Orientation entry; the caller applies it.
 
 #include <cstdarg>
 #include <cstdint>
@@ -1228,10 +1228,13 @@ class Decoder {
     }
   }
 
-  // The orientation of an Exif APP1 as OpenCV reads it: the TIFF header
-  // after "Exif\0\0", IFD0's first 0x0112 entry, its 16-bit value (0
-  // unless 1-8).  Returns false, to try the next Exif APP1, when the
-  // header or IFD0 is malformed or empty.
+  // The orientation of an Exif APP1 as OpenCV's ExifReader reads it: the
+  // TIFF header after "Exif\0\0", then IFD0's entries one by one until
+  // the count or the data ends (an entry needs its tag inside the data,
+  // an Orientation entry its value too), the first 0x0112 entry's 16-bit
+  // value (0 unless 1-8).  Returns false, to try the next Exif APP1,
+  // when no Orientation entry could be read (a malformed header, an
+  // empty IFD0, only other tags, the entry cut short).
   static bool exif_orientation(const uint8_t* t, size_t n, int* orientation) {
     if (n < 8) return false;
     bool le;
@@ -1248,17 +1251,18 @@ class Decoder {
                                 ((size_t)t[6] << 8) | (size_t)t[7];
     if (ifd + 2 > n) return false;
     const int count = u16(ifd);
-    if (count == 0 || ifd + 2 + 12 * (size_t)count > n) return false;
-    *orientation = 0;
+    if (count == 0) return false;
     for (int i = 0; i < count; i++) {
       const size_t e = ifd + 2 + 12 * (size_t)i;
+      if (e + 2 > n) break;
       if (u16(e) == 0x0112) {
+        if (e + 10 > n) break;
         const int o = u16(e + 8);
         *orientation = o >= 1 && o <= 8 ? o : 0;
-        break;
+        return true;
       }
     }
-    return true;
+    return false;
   }
 
   // -------------------------------------------------------------- output

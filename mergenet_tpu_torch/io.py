@@ -1,9 +1,10 @@
 """Readers for the committed fixtures: the Flax-tree npz checkpoint,
 PNGs (every colour type and bit depth, non-interlaced or Adam7, read as
-cv2 reads them, and grayscale unchanged, as Cityscapes' instance-id maps
-are stored), and the certification probability maps; and a PNG writer
-(8-bit grayscale or RGB, 16-bit grayscale) for the training samples,
-the synthetic dataset and instance-id maps.
+cv2 reads them, eXIf orientation applied, and grayscale unchanged, as
+Cityscapes' instance-id maps are stored), and the certification
+probability maps; and a PNG writer (8-bit grayscale or RGB, 16-bit
+grayscale) for the training samples, the synthetic dataset and
+instance-id maps.
 
 Standard library and numpy only: the GPU machine has no cv2 or PIL."""
 
@@ -103,19 +104,50 @@ def _unfilter_image(raw, H, W, ch, depth):
     return samples.reshape(H, W, ch)
 
 
+def exif_orientation(t):
+    """The EXIF orientation (1-8, 0 for none) of a TIFF-structured Exif
+    block `t` (bytes), as OpenCV's ExifReader finds it: byte order II or
+    MM and 42, then IFD0's entries one by one until the count or the
+    data ends (an entry needs its tag inside the data, an Orientation
+    entry its value too), the first 0x0112 entry's 16-bit value.
+    (`data/native/jpeg.cc` walks a JPEG's Exif APP1 alike.)"""
+    if len(t) < 8 or t[:2] not in (b"II", b"MM"):
+        return 0
+    e = "<" if t[:2] == b"II" else ">"
+    if struct.unpack(e + "H", t[2:4])[0] != 42:
+        return 0
+    (ifd,) = struct.unpack(e + "I", t[4:8])
+    if ifd + 2 > len(t):
+        return 0
+    for i in range(struct.unpack(e + "H", t[ifd:ifd + 2])[0]):
+        at = ifd + 2 + 12 * i
+        if at + 2 > len(t):
+            break
+        if t[at:at + 2] == struct.pack(e + "H", 0x0112):
+            if at + 10 > len(t):
+                break
+            found = struct.unpack(e + "H", t[at + 8:at + 10])[0]
+            return found if 1 <= found <= 8 else 0
+    return 0
+
+
 def _read_png(path):
-    """(samples (H, W, ch), colour type, bit depth, PLTE) of a PNG:
+    """(samples (H, W, ch), colour type, bit depth, PLTE, eXIf
+    orientation) of a PNG:
     8- and 16-bit samples as uint8 and big-endian uint16, 1-, 2- and
     4-bit ones unpacked to uint8 (unscaled).  An Adam7-interlaced file's
     seven passes are unfiltered each on its own (empty passes have no
     scanlines) and their pixels put back in place.  Unknown types and
     interlace methods raise ValueError naming the file, as does image
-    data shorter than its scanlines."""
+    data shorter than its scanlines.  The orientation is that of the
+    first eXIf chunk libpng keeps (before or after IDAT: at least 4
+    bytes starting `II*\\0` or `MM\\0*`, with a good CRC; later ones
+    are duplicates), 0 without one."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError("%s is not a PNG file" % path)
-    pos, idat, hdr, plte = 8, [], None, None
+    pos, idat, hdr, plte, exif = 8, [], None, None, None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         ctype = data[pos + 4:pos + 8]
@@ -126,6 +158,11 @@ def _read_png(path):
             plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(body)
+        elif ctype == b"eXIf" and exif is None and body[:4] in (
+                b"II*\0", b"MM\0*") and data[pos + 8 + length:
+                                           pos + 12 + length] == struct.pack(
+                    ">I", zlib.crc32(ctype + body) & 0xFFFFFFFF):
+            exif = exif_orientation(body)
         elif ctype == b"IEND":
             break
         pos += 12 + length
@@ -160,7 +197,7 @@ def _read_png(path):
         samples[y0::dy, x0::dx] = _unfilter_image(raw[at:at + n], ph, pw, ch,
                                                   depth)
         at += n
-    return samples, color, depth, plte
+    return samples, color, depth, plte, exif or 0
 
 
 def read_png_rgb(path):
@@ -168,8 +205,11 @@ def read_png_rgb(path):
     `cv2.imread` (then BGR -> RGB) gives it: RGB as stored; grey
     replicated to three channels (1, 2 and 4-bit grey scaled to 0-255);
     palette indices looked up in PLTE; alpha dropped; 16-bit samples
-    keep their high byte.  Unknown types raise ValueError naming them."""
-    samples, color, depth, plte = _read_png(path)
+    keep their high byte; turned by the eXIf chunk's orientation as cv2
+    turns it (`data.jpeg.orient`).  Unknown types raise ValueError
+    naming them."""
+    from .data.jpeg import orient
+    samples, color, depth, plte, orientation = _read_png(path)
     if depth == 16:
         samples = (samples >> 8).astype(np.uint8)
     elif depth < 8 and color == 0:
@@ -178,10 +218,12 @@ def read_png_rgb(path):
         idx = samples[..., 0]
         if int(idx.max(initial=0)) >= len(plte):
             raise ValueError("%s: palette index past PLTE" % path)
-        return plte[idx]
-    if samples.shape[2] <= 2:  # grey (+ alpha)
-        return np.repeat(samples[..., :1], 3, axis=2)
-    return np.ascontiguousarray(samples[..., :3])
+        rgb = plte[idx]
+    elif samples.shape[2] <= 2:  # grey (+ alpha)
+        rgb = np.repeat(samples[..., :1], 3, axis=2)
+    else:
+        rgb = samples[..., :3]
+    return orient(rgb, orientation)
 
 
 def read_png_gray(path):
@@ -190,8 +232,9 @@ def read_png_gray(path):
     with the full big-endian value at 16 bits (a Cityscapes
     `*_instanceIds.png`), uint8 at 8 bits, and 1, 2 and 4-bit samples
     scaled to 0-255 as libpng expands them.  Other colour types (which
-    cv2 reads with 3 or 4 channels) raise ValueError naming them."""
-    samples, color, depth, _ = _read_png(path)
+    cv2 reads with 3 or 4 channels) raise ValueError naming them.  An
+    eXIf orientation is not applied: IMREAD_UNCHANGED ignores it."""
+    samples, color, depth, _, _ = _read_png(path)
     if color != 0:
         raise ValueError("%s: read_png_gray reads grayscale PNGs only, got "
                          "colour type %d at bit depth %d"

@@ -66,12 +66,13 @@ def _filter(rows, bpp, rng):
 
 
 def write_png(path, samples, color, depth, *, interlace=False, palette=None,
-              trns=None, rng=None, idat_chunks=1):
+              trns=None, rng=None, idat_chunks=1, before=(), after=()):
     """Write `samples` (H, W, channels of `color`), values below
     2**depth, as a PNG of colour type `color` at `depth` bits, Adam7
     interlaced when `interlace`, each scanline's filter drawn from `rng`
     (None: no filter).  palette: (N, 3) uint8 for colour type 3; trns:
-    the tRNS chunk's body."""
+    the tRNS chunk's body; before, after: whole chunks (`chunk`'s bytes)
+    put just before the first IDAT and just before IEND."""
     samples = np.asarray(samples)
     H, W, ch = samples.shape
     assert ch == CHANNELS[color]
@@ -92,6 +93,20 @@ def write_png(path, samples, color, depth, *, interlace=False, palette=None,
         body += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
     if trns is not None:
         body += chunk(b"tRNS", trns)
+    body += b"".join(before)
     body += b"".join(chunk(b"IDAT", z[a:b]) for a, b in zip(cut, cut[1:]))
+    body += b"".join(after)
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n" + body + chunk(b"IEND", b""))
+
+
+def exif_tiff(entries, big_endian=False, count=None):
+    """An eXIf chunk's body: a TIFF header and IFD0 holding `entries`,
+    each (tag, type, value) with a 16-bit value, `count` entries claimed
+    (len(entries) by default), then a zero next-IFD offset."""
+    e = ">" if big_endian else "<"
+    t = (b"MM" if big_endian else b"II") + struct.pack(e + "HI", 42, 8)
+    t += struct.pack(e + "H", len(entries) if count is None else count)
+    for tag, typ, value in entries:
+        t += struct.pack(e + "HHIHH", tag, typ, 1, value, 0)
+    return t + struct.pack(e + "I", 0)

@@ -1,10 +1,11 @@
 """The port runs where the GPU machine has no jax, flax, cv2, PIL or
 grain, and never imports the JAX package: every module of
 `mergenet_tpu_torch` and `chip_smoke.py` import, and a small decode, a
-forward, the data slice (generate, read a PNG and a JPEG, resize, fill a
-polygon, load a batch) and the Cityscapes converter run, in a subprocess
-where those modules are blocked.  The JPEG decoder is the port's own
-source: it includes no libjpeg header and links no libjpeg."""
+forward, the data slice (generate, read a PNG, a JPEG, a TIFF, a BMP, a
+GIF, an HDR and a PAM, resize, fill a polygon, load a batch) and the
+Cityscapes converter run, in a subprocess where those modules are
+blocked.  The JPEG decoder and the raster decompressors are the port's
+own sources: they include no codec library's header and link none."""
 
 import os
 import pathlib
@@ -47,13 +48,14 @@ SCRIPT = textwrap.dedent("""
               "egs.coco.segment", "egs.coco.evaluate", "data.contours",
               "egs.cityscape.convert_cityscapes_to_coco",
               "egs.cityscape.cityscapes_labels", "data.jpeg",
-              "_host_build"):
+              "_host_build", "data.codecs", "data.tiff", "data.bmp",
+              "data.pxm", "data.sunras", "data.hdr", "data.gif"):
         assert "mergenet_tpu_torch." + m in mods, m
     from mergenet_tpu_torch.decoder import csegment
     from mergenet_tpu_torch.e2e import masks_to_results
     assert csegment._lib is None  # nothing is built at import
-    from mergenet_tpu_torch.data import jpeg
-    assert jpeg._lib is None
+    from mergenet_tpu_torch.data import codecs, jpeg
+    assert jpeg._lib is None and codecs._lib is None
     masks_to_results(np.ones((1, 4, 4), np.int32), np.ones((1, 1), np.int32),
                      [0], [0, 1])
     import chip_smoke
@@ -90,6 +92,10 @@ SCRIPT = textwrap.dedent("""
     imgproc.resize(np.zeros((9, 9), np.float32), (4, 5))
     assert imgproc.imread_rgb("tests/fixtures/jpeg/matrix/s420.jpg").shape \
         == (512, 1024, 3)
+    for rel in ("tiff/cv2_lzw_pred2.tif", "bmp/rle8_deltas.bmp",
+                "gif/cv2.gif", "hdr/cv2_rle.hdr", "pxm/cv2.pam"):
+        assert imgproc.imread_rgb("tests/fixtures/images/" + rel).shape \
+            == (64, 128, 3)
     imgproc.resize(np.zeros((8, 8, 9), np.float32), (4, 4))
     from mergenet_tpu_torch.utils.visualization import visualize_mask
     visualize_mask(np.zeros((20, 30, 3), np.uint8),
@@ -173,3 +179,19 @@ def test_jpeg_decoder_uses_no_libjpeg():
     needed = subprocess.run(["ldd", lib], capture_output=True, text=True)
     assert needed.returncode == 0 and "libstdc++" in needed.stdout
     assert "jpeg" not in needed.stdout, needed.stdout
+
+
+def test_raster_codecs_link_no_library():
+    """`native/codecs.cc` includes only the C++ standard library and
+    links nothing: no libtiff, giflib or zlib."""
+    from mergenet_tpu_torch.data import codecs
+    src = pathlib.Path(codecs.SRC).read_text()
+    includes = re.findall(r"^\s*#\s*include\s*[<\"]([^>\"]+)", src, re.M)
+    assert includes and all("/" not in h and "." not in h
+                            for h in includes), includes
+    assert not any(f.startswith("-l") for f in codecs.CXX_FLAGS)
+    needed = subprocess.run(["ldd", codecs.build()], capture_output=True,
+                            text=True)
+    assert needed.returncode == 0 and "libstdc++" in needed.stdout
+    assert not re.search(r"tiff|gif|libz|png|jpeg", needed.stdout), \
+        needed.stdout

@@ -288,6 +288,31 @@ def test_exif_segment_cv2_takes(tmp_path):
     assert got.shape == (120, 200, 3)  # after the first scan: not read
 
 
+def test_exif_ifd_entries_as_cv2_reads_them(tmp_path):
+    """OpenCV's ExifReader walks IFD0's entries until the count or the
+    data ends: an IFD0 whose count runs past its entries still turns the
+    image, and a later Exif APP1 is then not read; a segment whose
+    Orientation entry is cut short, or that has only other tags, is
+    passed over; the first of two Orientation entries counts."""
+    import struct
+    base = _bench_jpeg()
+
+    def app1(entries, count=None, cut=None):
+        t = b"II" + struct.pack("<HIH", 42, 8, len(entries) if count is None
+                                else count)
+        t += b"".join(struct.pack("<HHIHH", tag, 3, 1, v, 0)
+                      for tag, v in entries) + struct.pack("<I", 0)
+        return segment(0xE1, b"Exif\x00\x00" + t[:cut])
+    o6, o3, other = (0x0112, 6), (0x0112, 3), (0x0100, 5)
+    for k, segs in enumerate([
+            app1([o6], count=2), app1([o6], count=9) + app1([o3]),
+            app1([o6], cut=16) + app1([o3]), app1([o6, o3]),
+            app1([other, o6], count=5), app1([other], count=2) + app1([o3]),
+            app1([other, o6], cut=28) + app1([o3])]):
+        _assert_reads_as_cv2(insert_after_soi(base, segs), tmp_path,
+                             "ifd%d.jpg" % k)
+
+
 # ------------------------------------ past baseline: what cv2 reads, step 0
 
 def _both(data, tmp_path, name="c.jpg"):
@@ -613,9 +638,15 @@ def test_refuses_what_it_does_not_decode(tmp_path):
         with pytest.raises(ValueError, match=cause) as e:
             imgproc.imread_rgb(path)
         assert path in str(e.value)
+    # a BMP is read now (test_torch_port_containers.py holds the
+    # containers to cv2); bytes no reader claims still raise
     path = str(tmp_path / "x.bmp")
     cv2.imwrite(path, np.zeros((4, 4, 3), np.uint8))
-    with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
+    np.testing.assert_array_equal(imgproc.imread_rgb(path),
+                                  np.zeros((4, 4, 3), np.uint8))
+    with open(path, "wb") as f:
+        f.write(b"XX" + bytes(40))
+    with pytest.raises(ValueError, match="no image format cv2 reads"):
         imgproc.imread_rgb(path)
 
 

@@ -9,7 +9,14 @@ Files are written by `png_craft.write_png`: every colour type at every
 bit depth, interlaced and not, sizes whose Adam7 passes are empty or
 hold one pixel, seeded filter types per scanline, the data over two
 IDAT chunks.  The non-interlaced colour types cv2 writes are held in
-`test_torch_port_data_imgproc.py`."""
+`test_torch_port_data_imgproc.py`.
+
+The eXIf chunk: orientations 1-8 (and none) in both byte orders, before
+and after IDAT, on every colour type, against cv2 (which turns the image
+for IMREAD_COLOR and not for IMREAD_UNCHANGED); which of several eXIf
+chunks libpng keeps and how OpenCV's ExifReader walks IFD0.  (The JAX
+package's datasets on a split of eXIf-turned PNGs are held in
+`test_torch_port_containers.py`.)"""
 
 import cv2
 import numpy as np
@@ -17,7 +24,7 @@ import pytest
 
 from mergenet_tpu_torch import io
 from mergenet_tpu_torch.data import imgproc
-from png_craft import write_png
+from png_craft import chunk, exif_tiff, write_png
 
 #: (colour type, bit depth) of every PNG the reader takes
 TYPES = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1),
@@ -120,3 +127,81 @@ def test_adam7_refusals_as_cv2(tmp_path):
         with pytest.raises(ValueError, match=cause) as e:
             imgproc.imread_rgb(path)
         assert path in str(e.value)
+
+
+# -------------------------------------------------------------------- eXIf
+
+def _orient_chunk(o, big_endian=False):
+    return chunk(b"eXIf", exif_tiff([(0x0112, 3, o)], big_endian))
+
+
+@pytest.mark.parametrize("big_endian", [False, True], ids=["II", "MM"])
+@pytest.mark.parametrize("orientation", range(0, 10))
+def test_exif_orientation_as_cv2(orientation, big_endian, tmp_path):
+    """cv2.imread turns a PNG by its eXIf orientation, before or after
+    IDAT, whatever the colour type; IMREAD_UNCHANGED leaves it, and so
+    does read_png_gray."""
+    rng = np.random.default_rng(orientation * 2 + big_endian)
+    c = [_orient_chunk(orientation, big_endian)]
+    for color, depth in TYPES:
+        for where in ("before", "after"):
+            path = str(tmp_path / ("o%d_%d_%s.png" % (color, depth, where)))
+            ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+            pal = rng.integers(0, 256, (1 << depth, 3)) if color == 3 \
+                else None
+            write_png(path, rng.integers(0, 1 << depth, (5, 7, ch)), color,
+                      depth, palette=pal, rng=rng, **{where: c})
+            ref = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+            np.testing.assert_array_equal(io.read_png_rgb(path), ref,
+                                          err_msg=path)
+            np.testing.assert_array_equal(imgproc.imread_rgb(path), ref)
+            if color == 0:
+                ref = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+                assert ref.shape == (5, 7)
+                np.testing.assert_array_equal(io.read_png_gray(path), ref)
+
+
+def test_exif_chunk_libpng_keeps_and_entries_cv2_reads(tmp_path):
+    """libpng keeps the first eXIf chunk of at least 4 bytes that starts
+    II*\\0 or MM\\0* and has a good CRC (a later one is a duplicate,
+    before or after IDAT); OpenCV's ExifReader takes IFD0's first
+    Orientation entry, walks entries past the count as long as their tags
+    are inside the data, and keeps nothing when one runs past it."""
+    o = lambda v: (0x0112, 3, v)  # noqa: E731
+    other = (0x0100, 3, 5)
+    bad_crc = bytearray(_orient_chunk(6))
+    bad_crc[-1] ^= 1
+    cases = {
+        "first wins": ([_orient_chunk(3), _orient_chunk(6)], []),
+        "before beats after": ([_orient_chunk(3)], [_orient_chunk(6)]),
+        "none, then a duplicate": ([_orient_chunk(0), _orient_chunk(6)], []),
+        "Exif prefix invalid": ([chunk(b"eXIf", b"Exif\0\0"
+                                       + exif_tiff([o(6)]))], []),
+        "invalid, then good": ([chunk(b"eXIf", b"IM" + exif_tiff([o(6)])[
+            2:]), _orient_chunk(3)], []),
+        "3 bytes, then good": ([chunk(b"eXIf", b"II*"), _orient_chunk(3)],
+                               []),
+        "header only, then dup": ([chunk(b"eXIf", b"II*\0"),
+                                   _orient_chunk(3)], []),
+        "bad CRC, then good": ([bytes(bad_crc), _orient_chunk(3)], []),
+        "empty IFD0": ([chunk(b"eXIf", exif_tiff([]))], []),
+        "two entries": ([chunk(b"eXIf", exif_tiff([o(6), o(3)]))], []),
+        "after another tag": ([chunk(b"eXIf", exif_tiff([other, o(7)]))],
+                              []),
+        "count past the entries": ([chunk(b"eXIf", exif_tiff(
+            [o(6)], count=2))], []),
+        "count far past": ([chunk(b"eXIf", exif_tiff([o(6)], count=9))],
+                           []),
+        "entry cut": ([chunk(b"eXIf", exif_tiff([o(6)])[:16])], []),
+        "MM, LONG type": ([chunk(b"eXIf", exif_tiff([(0x0112, 4, 0)], True)
+                                 )], []),
+        "IFD past the end": ([chunk(b"eXIf", b"II*\0\xff\0\0\0")], []),
+    }
+    rng = np.random.default_rng(9)
+    for k, (before, after) in enumerate(cases.values()):
+        path = str(tmp_path / ("e%d.png" % k))
+        write_png(path, rng.integers(0, 256, (4, 6, 3)), 2, 8,
+                  before=before, after=after)
+        ref = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+        np.testing.assert_array_equal(io.read_png_rgb(path), ref,
+                                      err_msg=list(cases)[k])
