@@ -59,6 +59,16 @@ after:
   (floodscan, absorb, tgather) against the JAX package's AP on the same
   files, the images that scoring read held to cv2's digests, and the
   coco recipe's train loader on JPEG and PNG, its stages timed;
+- WebP: the port's reader (`data/webp.py`, host C++
+  `data/native/webp.cc` built with g++ after the raster decompressors)
+  on the committed `tests/fixtures/webp` (VP8, VP8L, alpha, EXIF, an
+  animation) against cv2's digests, its lossless files against the
+  regenerated PNGs, procedure (c)'s hier column scored from the q90
+  WebPs of the 50 val images (floodscan, absorb, tgather) against the
+  JAX package's AP on the same files, each read held to cv2's digest,
+  and the host's ms per 512x1024 image for VP8 and VP8L;
+- from here the recipes' subprocesses (below) run beside the converter,
+  certification (c), containers and certification (d) phases;
 - the Cityscapes converter: the 50 regenerated val images as a gtFine
   tree (16-bit `*_gtFine_instanceIds.png`), converted by the
   `prepare_data.sh` twin as a subprocess, the converted masks held
@@ -109,17 +119,17 @@ even number of cards (2 or more): the steps and serving on
 Every check raises; the exit code is 0 only when all phases pass.
 Prints one line per phase, `train {...}`, `zoo {...}`,
 `class_inference {...}`, `staged {...}`, `data {...}`, `jpeg {...}`,
-`converter {...}`, `certification_c {...}`, `containers {...}`,
-`certification_d {...}`,
+`webp {...}`, `converter {...}`, `certification_c {...}`,
+`containers {...}`, `certification_d {...}`,
 `recipes {...}`, `spatial {...}` and `train_aux {...}` lines
 (times, throughput, peak memory, FLOPs, shares of the bf16 peak), the
 new phases' spans (`utils/profiling.Stopwatch`), the summary, then the
 card, the kernels line, and last `{"ok": true, "device": {...}}`.
 
 Needs a CUDA device and the repository around it (the port,
-tests/fixtures/certification512 and images, the tests' shared data
-makers in tests/torch_port_helpers.py and the containers' writer in
-tests/container_craft.py); imports torch, numpy, scipy (the
+tests/fixtures/certification512, images, jpeg and webp, the tests'
+shared data makers in tests/torch_port_helpers.py and the containers'
+writer in tests/container_craft.py); imports torch, numpy, scipy (the
 converter phase), pytest (through those helpers) and the standard
 library besides the port.  Writes nothing outside
 mergenet_tpu_torch/_build/ (the train phase's checkpoints, the synthetic
@@ -1517,20 +1527,22 @@ def data_phase(smi, sw, run):
 
 
 def start_jpeg_build():
-    """The g++ builds of the JPEG decoder (`data/native/jpeg.cc`) and
-    then of the raster decompressors (`data/native/codecs.cc`) in a
-    thread, started once the kernels' nvcc build is done, so that they
-    run beside the card phases that follow; returns (thread, result
-    dict), which the jpeg phase joins (the dict holds build_s and
-    codecs_build_s, None for a library already built, or the error)."""
+    """The g++ builds of the JPEG decoder (`data/native/jpeg.cc`), then
+    of the raster decompressors (`data/native/codecs.cc`) and of the
+    WebP decoders (`data/native/webp.cc`) in a thread, started once the
+    kernels' nvcc build is done, so that they run beside the card phases
+    that follow; returns (thread, result dict), which the jpeg phase
+    joins (the dict holds build_s, codecs_build_s and webp_build_s, None
+    for a library already built, or the error)."""
     import threading
 
-    from mergenet_tpu_torch.data import codecs, jpeg
+    from mergenet_tpu_torch.data import codecs, jpeg, webp
     result = {}
 
     def run():
         try:
-            for key, mod in (("build_s", jpeg), ("codecs_build_s", codecs)):
+            for key, mod in (("build_s", jpeg), ("codecs_build_s", codecs),
+                             ("webp_build_s", webp)):
                 built = not os.path.exists(mod.library_path())
                 t0 = time.perf_counter()
                 mod.build()
@@ -2253,6 +2265,140 @@ def containers_phase(drive, paths, smi, sw, run, cert_c):
                 "containers timing"))}
 
 
+def webp_phase(drive, paths, smi, sw, data_dir, built):
+    """WebP reading (`data/webp.py` over `data/native/webp.cc`, built by
+    `start_jpeg_build`): every committed file of tests/fixtures/webp
+    (lossy and lossless, crafted partitions, filters, palettes, alpha,
+    EXIF and an animation) read by `imgproc.imread_rgb` and held to
+    cv2's SHA-256 (`cv2_digests.json`); the lossless files held equal to
+    the regenerated PNGs they came from; procedure (c)'s hier column
+    scored from the 50 committed q90 WebPs of the val images
+    (`certify.score` on the card: floodscan, absorb and tgather once per
+    image), every read held to cv2's digest, AP and AP50 within
+    CERT_JAX_AP_TOL of JAX's `c_webp` figure, zero overflow; the host's
+    ms per 512x1024 image for VP8 and VP8L (JPEG_REPS decodes each, in
+    turns)."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    from mergenet_tpu_torch import certify as CT
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.data import imgproc
+
+    fixw = os.path.join(HERE, "tests", "fixtures", "webp")
+    with open(os.path.join(fixw, "cv2_digests.json")) as f:
+        digests = json.load(f)
+    build_s = built.get("webp_build_s")
+    wrong, lossless_equal, val_s = [], {}, 0.0
+    with sw.span("webp fixtures"):
+        for rel, d in sorted(digests.items()):
+            t0 = time.perf_counter()
+            img = imgproc.imread_rgb(os.path.join(fixw, rel))
+            if rel.startswith("val/"):
+                val_s += time.perf_counter() - t0
+            if [list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()] \
+                    != [d["shape"], d["sha256"]]:
+                wrong.append(rel)
+            if "png" in d:
+                lossless_equal[rel] = bool(np.array_equal(img, io.read_png_rgb(
+                    os.path.join(data_dir, "val", d["png"]))))
+    val = sorted(r for r in digests if r.startswith("val/"))
+    print("  decoder %s (g++, after the nvcc build); %d committed files "
+          "decoded in %.2f s, %d differ from cv2's digest: %s; lossless "
+          "files equal to the PNGs they came from: %s; 512x1024 q90 VP8 in "
+          "(c)'s set: %.3f ms per image (host, %s)" % (
+              "cached" if build_s is None else "built in %.2f s" % build_s,
+              len(digests), sw.totals["webp fixtures"], len(wrong), wrong,
+              lossless_equal, val_s / len(val) * 1e3, smi), flush=True)
+
+    wdir = os.path.join(HERE, "mergenet_tpu_torch", "_build", "webp_data")
+    shutil.rmtree(wdir, ignore_errors=True)
+    os.makedirs(os.path.join(wdir, "annotations"))
+    shutil.copytree(os.path.join(fixw, "val"), os.path.join(wdir, "val"))
+    with open(os.path.join(data_dir, "annotations",
+                           "instancesonly_val.json")) as f:
+        ann = json.load(f)
+    for im in ann["images"]:
+        im["file_name"] = os.path.splitext(im["file_name"])[0] + ".webp"
+    with open(os.path.join(wdir, "annotations", "instancesonly_val.json"),
+              "w") as f:
+        json.dump(ann, f)
+    offsets = io.load_offsets(FIX)
+    net = CT.load_bench_net(os.path.join(FIX, "bench_ckpt.npz"),
+                            9 + len(offsets))
+    reads = {}  # what certify.score itself read: held to cv2's digests
+    imread = imgproc.imread_rgb
+
+    def hashed_imread(path):
+        img = imread(path)
+        reads["val/" + os.path.basename(path)] = [
+            list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()]
+        return img
+
+    imgproc.imread_rgb = hashed_imread
+    try:
+        with sw.span("webp (c) hier"):
+            r = drive("webp", lambda: CT.score(net, wdir, 9, offsets,
+                                               ("hier",)),
+                      ("floodscan", "absorb", "tgather"))
+    finally:
+        imgproc.imread_rgb = imread
+    del net
+    shutil.rmtree(wdir, ignore_errors=True)
+    reads_equal = reads == {rel: [digests[rel]["shape"],
+                                  digests[rel]["sha256"]] for rel in val}
+    ap, jref = r["hier"], JAX_AP["c_webp"]["hier"]
+    png = JAX_AP["c"]["hier"]
+    print("  (c) hier from WebP: AP %.4f AP50 %.4f | JAX (CPU, cv2.imread) "
+          "AP %.4f AP50 %.4f | from PNG, JAX: AP %.4f AP50 %.4f; reads of "
+          "the %d WebPs equal to cv2's digests: %s; %d images, overflow %s, "
+          "net %.2f s, hier %.2f s" % (
+              ap[0], ap[1], jref[0], jref[1], png[0], png[1], len(val),
+              reads_equal, r["images"], r["overflow"], r["times_s"]["net"],
+              r["times_s"]["hier"]), flush=True)
+    launches = dict(paths["webp"])
+    gates = [("every committed file equal to cv2's digest", not wrong),
+             ("the lossless files equal to their PNGs",
+              bool(lossless_equal) and all(lossless_equal.values())),
+             ("AP within %.3f of JAX's" % CERT_JAX_AP_TOL,
+              abs(ap[0] - jref[0]) <= CERT_JAX_AP_TOL),
+             ("AP50 within %.3f of JAX's" % CERT_JAX_AP_TOL,
+              abs(ap[1] - jref[1]) <= CERT_JAX_AP_TOL),
+             ("score's reads of the %d WebPs equal to cv2's digests"
+              % len(val), reads_equal),
+             ("zero overflow", not any(r["overflow"].values())),
+             ("one launch of each kernel per image",
+              all(launches.get(k) == r["images"]
+                  for k in ("floodscan", "absorb", "tgather")))]
+
+    # host ms per 512x1024 image: a lossy (VP8) and a lossless (VP8L)
+    # file, decoded JPEG_REPS times in turns
+    timed = {"vp8": "val/val_00000.webp", "vp8l": "lossless/val_00000.webp"}
+    spent = dict.fromkeys(timed, 0.0)
+    with sw.span("webp timing"):
+        for _ in range(JPEG_REPS):
+            for kind, rel in timed.items():
+                t0 = time.perf_counter()
+                imgproc.imread_rgb(os.path.join(fixw, rel))
+                spent[kind] += time.perf_counter() - t0
+    ms = {kind: spent[kind] / JPEG_REPS * 1e3 for kind in timed}
+    print("  ms per 512x1024 image, %d decodes each (host, %s): VP8 q90 "
+          "%.3f, VP8L %.3f" % (JPEG_REPS, smi, ms["vp8"], ms["vp8l"]),
+          flush=True)
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        raise AssertionError("webp gates failed: %s" % failed)
+    return {"build_s": build_s, "fixtures": len(digests), "differ": wrong,
+            "lossless_equal_png": lossless_equal, "ap": ap, "jax_ap": jref,
+            "png_jax_ap": png, "reads_equal_digests": reads_equal,
+            "overflow": r["overflow"], "times_s": r["times_s"],
+            "launches": launches, "ms_per_512x1024": ms, "reps": JPEG_REPS,
+            "phase_s": sum(sw.totals[k] for k in (
+                "webp fixtures", "webp (c) hier", "webp timing"))}
+
+
 def cert_d_phase(drive, smi, sw, data_dir):
     """Procedure (d): seed 0 trained on the regenerated data through the
     port's loader (`certify.train_seed`: the compact pipeline, 24 epochs
@@ -2341,9 +2487,11 @@ def _launch_log(path):
     return total
 
 
-def recipes_phase(drive, paths, smi, sw, data_dir):
-    """The port's recipes as users run them, as subprocesses, on the 50
-    regenerated 512x1024 val images of `data_dir`:
+def recipes_start(data_dir):
+    """Start the port's recipes as users run them, as subprocesses, on the
+    50 regenerated 512x1024 val images of `data_dir` (`recipes_phase`
+    joins them; the card phases between run beside their host-bound
+    chain):
 
     - the committed PSPFPNet-r50 split into a class-only and an
       offset-only port checkpoint (the head's first 9 and last 10
@@ -2373,25 +2521,20 @@ def recipes_phase(drive, paths, smi, sw, data_dir):
       this process) equal to the plain serve on 2 frames.
 
     The subprocesses report their kernel launches through
-    MERGENET_LAUNCH_LOG (`ops/_build.py`)."""
+    MERGENET_LAUNCH_LOG (`ops/_build.py`).  Returns the run's state."""
     import shutil
     import subprocess
+    import threading
 
     import numpy as np
     import torch
-    import torch.distributed as dist
 
     from mergenet_tpu_torch import certify as CT
     from mergenet_tpu_torch import io
-    from mergenet_tpu_torch.data import COCO, imgproc, rle
-    from mergenet_tpu_torch.models import PSPFPNet, get_model
-    from mergenet_tpu_torch.ops import _build
-    from mergenet_tpu_torch.parallel import make_mesh
+    from mergenet_tpu_torch.data import imgproc
+    from mergenet_tpu_torch.models import PSPFPNet
     from mergenet_tpu_torch.parallel import train as T
-    from mergenet_tpu_torch.serving import build_serving_pipeline
-    from mergenet_tpu_torch.utils.checkpoint import (load_checkpoint,
-                                                     save_checkpoint)
-    from mergenet_tpu_torch.utils.visualization import visualize_mask
+    from mergenet_tpu_torch.utils.checkpoint import save_checkpoint
 
     cuda = torch.device("cuda")
     work = os.path.join(HERE, "mergenet_tpu_torch", "_build", "recipes")
@@ -2487,19 +2630,66 @@ def recipes_phase(drive, paths, smi, sw, data_dir):
         with open(logs["infer_pspfpnet.sh"]) as f:
             return f.read()
 
-    def run_all():
-        t0 = time.perf_counter()
-        for name, cmd in background.items():
-            start(name, cmd, name.replace(" ", "_"))
-        chain = start("infer_pspfpnet.sh", chain_cmd, "chain", nice=0)
-        # the 2x-shrink segments start once offset_infer wrote its maps
+    t0 = time.perf_counter()
+    for name, cmd in background.items():
+        start(name, cmd, name.replace(" ", "_"))
+    chain = start("infer_pspfpnet.sh", chain_cmd, "chain", nice=0)
+
+    def watch():  # the 2x-shrink segments start once offset_infer is done
         while chain.poll() is None and "stage 1 done" not in chain_text():
             time.sleep(0.5)
         if chain.poll() in (None, 0):
             for dev, cmd in half.items():
                 start("segment 2x shrink " + dev, cmd, "half_" + dev)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    return {"work": work, "net": net, "tx": tx, "offsets": offsets,
+            "val_img": val_img, "val_ann": val_ann, "head_err": head_err,
+            "procs": procs, "logs": logs, "chain": chain,
+            "watcher": watcher, "t0": t0, "chain_text": chain_text}
+
+
+def recipes_stop(rec):
+    """Kill the recipes' subprocesses that still run."""
+    for p in list(rec["procs"].values()):
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def recipes_phase(drive, paths, smi, sw, rec):
+    """Join the recipes `recipes_start` started (the gates its docstring
+    lists), then serve on a world-size-1 mesh."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mergenet_tpu_torch import certify as CT
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.data import COCO, imgproc, rle
+    from mergenet_tpu_torch.models import get_model
+    from mergenet_tpu_torch.ops import _build
+    from mergenet_tpu_torch.parallel import make_mesh
+    from mergenet_tpu_torch.parallel import train as T
+    from mergenet_tpu_torch.serving import build_serving_pipeline
+    from mergenet_tpu_torch.utils.checkpoint import load_checkpoint
+    from mergenet_tpu_torch.utils.visualization import visualize_mask
+
+    work, net, tx, offsets = rec["work"], rec["net"], rec["tx"], \
+        rec["offsets"]
+    val_img, val_ann, head_err = rec["val_img"], rec["val_ann"], \
+        rec["head_err"]
+    procs, logs, chain = rec["procs"], rec["logs"], rec["chain"]
+    chain_text = rec["chain_text"]
+    C, O = 9, len(offsets)
+
+    def wait_all():
         chain.wait(timeout=RECIPE_TIMEOUT_S)
-        chain_s = time.perf_counter() - t0
+        chain_s = time.perf_counter() - rec["t0"]
+        rec["watcher"].join()
         rcs = {n: p.wait(timeout=RECIPE_TIMEOUT_S) for n, p in procs.items()}
         _build.LAUNCHES.update(_launch_log(os.path.join(
             work, "chain.launches")))
@@ -2507,12 +2697,9 @@ def recipes_phase(drive, paths, smi, sw, data_dir):
 
     try:
         with sw.span("recipes"):
-            chain_s, rcs = drive("recipes", run_all, ("floodscan", "absorb"))
+            chain_s, rcs = drive("recipes", wait_all, ("floodscan", "absorb"))
     finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        recipes_stop(rec)
     chain_out = chain_text()
     print("  exit codes: %s; chain %.2f s; stages (ms, with training, "
           "infer_e2e and the 2x-shrink segments running beside them at "
@@ -3846,6 +4033,22 @@ def main():
           "the q90 JPEGs of the 50 val images, the coco loader on JPEG/PNG")
     jpeg_r = jpeg_phase(drive, paths, smi, sw, data_dir, jpeg_build)
     print("jpeg " + json.dumps({"card": smi, **jpeg_r}), flush=True)
+    phase("webp: the committed WebPs against cv2's digests, the lossless "
+          "files against their PNGs, (c) hier from the q90 WebPs of the 50 "
+          "val images")
+    webp_r = webp_phase(drive, paths, smi, sw, data_dir, jpeg_build[1])
+    print("webp " + json.dumps({"card": smi, **webp_r}), flush=True)
+    # the recipes' subprocesses (a host-bound chain of process starts,
+    # reads and writes) run beside the converter, certification (c),
+    # containers and certification (d) phases; the recipes phase joins
+    # them after (d)
+    phase("recipes: the committed net split into class/offset/all "
+          "checkpoints; infer_pspfpnet.sh stages 0-4, infer_e2e and the "
+          "train recipe (plain and torchrun) started on the 50 regenerated "
+          "val images, beside the phases up to certification (d)")
+    with sw.span("recipes start"):
+        recipes_run = recipes_start(data_dir)
+    _STOPS.append(lambda: recipes_stop(recipes_run))
     phase("converter: a gtFine tree of the 50 val images -> the "
           "prepare_data.sh twin -> masks and hier AP on the converted json")
     converter = converter_phase(drive, smi, sw, data_dir)
@@ -3867,16 +4070,15 @@ def main():
     cert_d = cert_d_phase(drive, smi, sw, data_dir)
     print("certification_d " + json.dumps({"card": smi, **cert_d}),
           flush=True)
-    # the spatial phase's ranks start with the recipes, whose chain is
-    # host-bound and read in process seconds: they build their nets and
-    # wait, idle, until the spatial phase; no timed window of another
-    # phase overlaps them (their start takes ~10-20 s of host)
+    # the spatial phase's ranks start while the recipes finish: they build
+    # their nets and wait, idle, until the spatial phase (their start takes
+    # ~10-20 s of host).  Started with the recipes, so that they waited
+    # through (d), their steps ran 2-3x slower
     spatial_run = spatial_start()
     try:
-        phase("recipes: infer_pspfpnet.sh stages 0-4, infer_e2e and the "
-              "train recipe (plain and torchrun) on the 50 regenerated val "
-              "images")
-        recipes = recipes_phase(drive, paths, smi, sw, data_dir)
+        phase("recipes: join infer_pspfpnet.sh stages 0-4, infer_e2e and "
+              "the train recipe (plain and torchrun)")
+        recipes = recipes_phase(drive, paths, smi, sw, recipes_run)
         print("recipes " + json.dumps({"card": smi, **recipes}), flush=True)
         phase("spatial: PSPFPNet-r50 height-sharded over %d ranks on the "
               "card (gloo): the dry run's step, the served frame, serving"

@@ -7,7 +7,7 @@ function here reproduces what cv2 computes, not an approximation of it:
 
     imread_rgb(path)             cv2.imread(path) + BGR -> RGB: PNG, JPEG,
                                  TIFF, BMP, PBM/PGM/PPM, PAM, PFM, Sun
-                                 raster, Radiance HDR, GIF
+                                 raster, Radiance HDR, GIF, WebP
     resize(img, (w, h), interpolation)
                                  cv2.resize, INTER_LINEAR (uint8, float32)
                                  and INTER_NEAREST (any dtype)
@@ -96,13 +96,22 @@ jpeg}.py` hold each row; PERF.md has the same table):
                                                half to even
   GIF 87a/89a, tables, interlace,              the first frame     equal
     transparency, small frames                 over the background
-  WebP, JPEG 2000, AVIF                        read                ValueError
+  WebP VP8 (any quality, partitions,          libwebp's fancy     equal
+    segments, loop filter), VP8L (every        upsampling; alpha
+    transform, cache, meta codes), VP8X        dropped; first
+    with ALPH, ICCP, XMP, unknown chunks,      frame on a canvas
+    animation                                  of zeros
+  WebP EXIF 1-8 (first EXIF chunk, VP8X EXIF   turned only where   equal
+    flag, a file WebPDemux accepts)            WebPDemux keeps it
+  WebP truncated, corrupt, sizes that lie,     None                ValueError
+    animations WebPDemux refuses
+  JPEG 2000, AVIF                              read                ValueError
                                                                    (not yet)"""
 
 import numpy as np
 
 from .. import io
-from . import bmp, gif, hdr, jpeg, pxm, sunras, tiff
+from . import bmp, gif, hdr, jpeg, pxm, sunras, tiff, webp
 
 INTER_NEAREST = 0
 INTER_LINEAR = 1
@@ -128,7 +137,7 @@ _DECODERS = (
     (lambda h: h[:2] == b"BM", bmp.decode_bmp),
     (lambda h: h.startswith(hdr.SIGNATURES), hdr.decode_hdr),
     (lambda h: h[:3] == b"\xff\xd8\xff", jpeg.decode_jpeg),
-    (lambda h: h[:4] == b"RIFF" and h[8:12] == b"WEBP", "WebP"),
+    (webp.is_webp, webp.decode_webp),
     (lambda h: h[:4] == sunras.MAGIC, sunras.decode_sunras),
     (lambda h: h[:1] == b"P" and h[1:2] in (b"1", b"2", b"3", b"4", b"5",
                                             b"6") and h[2:3].isspace(),
@@ -168,9 +177,12 @@ def imread_rgb(path):
         HDR   hdr.decode_hdr: -Y +X, run-length or flat RGBE
         GIF   gif.decode_gif: the first frame, local/global tables,
               interlace, transparency, the background
+        WebP  webp.decode_webp: VP8 (libwebp's fancy upsampling), VP8L,
+              VP8X with alpha (dropped), the first frame of an
+              animation; EXIF orientation applied
 
     Where cv2 returns None (each module lists those files), this raises
-    ValueError naming the file and the cause; WebP, JPEG 2000 and AVIF,
+    ValueError naming the file and the cause; JPEG 2000 and AVIF,
     which cv2 reads, raise a ValueError saying the port does not read
     them yet; so do the TIFF compressions and photometric
     interpretations `tiff.py` names, and the PAM files with alpha that

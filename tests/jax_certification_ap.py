@@ -5,6 +5,7 @@ card's decodes to:
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py     # (a), (b): ~5 min
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c   # (c): ~17 min
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c_jpeg  # ~3 min
+    JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c_webp  # ~3 min
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c_exact_0_7  # 3 min
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c_exact_0_7 \
         --save-exact tests/fixtures/certification512
@@ -34,7 +35,9 @@ keeps the regenerated images (default: a temporary directory).
 Procedure "c_jpeg" is (c) with the hier decode only, on the committed
 JPEG encodings of the same 50 images (`tests/fixtures/jpeg/val/`,
 quality 90, 4:2:0, written by `tests/make_jpeg_fixtures.py`), read with
-`cv2.imread` as the JAX package reads images.  Procedure
+`cv2.imread` as the JAX package reads images; "c_webp" is the same on
+the committed WebP encodings (`tests/fixtures/webp/val/`, quality 90,
+lossy VP8, written by `tests/make_webp_fixtures.py`).  Procedure
 "c_exact_0_7" is (c)'s exact column on val images 0-7 alone, scored
 over those 8 images (the images `chip_smoke.py` decodes exact in its
 (c) phase); `--save-exact DIR` writes each of their exact decodes to
@@ -57,6 +60,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIX = os.path.join(REPO, "tests", "fixtures", "certification512")
 JPEG_VAL = os.path.join(REPO, "tests", "fixtures", "jpeg", "val")
+WEBP_VAL = os.path.join(REPO, "tests", "fixtures", "webp", "val")
 SERVE_KW = dict(object_merge_factor=1.0, merge_logprob_bias=0.03)
 
 
@@ -107,12 +111,12 @@ def _script(name, path):
 
 
 def procedure_c(data_dir, decoders=("hier", "exact"), image_dir=None,
-                limit=None, save_exact=None):
+                limit=None, save_exact=None, ext=".jpg"):
     """{"hier": (AP, AP50), "exact": (AP, AP50), "overflow": {...},
     "times_s": {...}}: the JAX package on the 50 val images regenerated
     by the reference generator, scored as the certification script
     scores them.  `image_dir` reads each image from there instead, under
-    its name with `.jpg` (procedure "c_jpeg"); `limit` takes the first
+    its name with `ext` (procedures "c_jpeg", "c_webp"); `limit` takes the first
     `limit` val images and scores over them alone; `save_exact` is a
     directory for the exact masks of val images 0-7."""
     import jax
@@ -161,7 +165,7 @@ def procedure_c(data_dir, decoders=("hier", "exact"), image_dir=None,
         path = os.path.join(data_dir, "val", fname)
         if image_dir is not None:
             path = os.path.join(image_dir, os.path.splitext(fname)[0]
-                                + ".jpg")
+                                + ext)
         img = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
         t0 = time.time()
         probs = np.asarray(probs_fn(params, batch_stats, jnp.asarray(
@@ -217,7 +221,8 @@ def procedure_c(data_dir, decoders=("hier", "exact"), image_dir=None,
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("procedures", nargs="*", default=["a", "b"],
-                    choices=["a", "b", "c", "c_jpeg", "c_exact_0_7"])
+                    choices=["a", "b", "c", "c_jpeg", "c_webp",
+                             "c_exact_0_7"])
     ap.add_argument("--data", default=None,
                     help="directory for procedure (c)'s regenerated images")
     ap.add_argument("--save-exact", default=None,
@@ -244,10 +249,12 @@ def main():
         if "a" in args.procedures:
             out["a01"] = {"hier": jax_ap(coco,
                                          res["hier"][0] + res["hier"][1])}
-    for proc in ("c", "c_jpeg", "c_exact_0_7"):
+    for proc in ("c", "c_jpeg", "c_webp", "c_exact_0_7"):
         if proc not in args.procedures:
             continue
         kw = {"c": {}, "c_jpeg": dict(decoders=("hier",), image_dir=JPEG_VAL),
+              "c_webp": dict(decoders=("hier",), image_dir=WEBP_VAL,
+                             ext=".webp"),
               "c_exact_0_7": dict(decoders=("exact",), limit=8)}[proc]
         if "exact" in kw.get("decoders", ("exact",)):
             kw["save_exact"] = args.save_exact

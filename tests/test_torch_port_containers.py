@@ -19,7 +19,8 @@ wherever cv2 returns None.
   transparency, frames smaller than the screen), and the same through
   cv2's own writers;
 - the dispatch on the file's first bytes, and the containers the port
-  does not read yet (WebP, JPEG 2000, AVIF, TIFF JPEG);
+  does not read yet (JPEG 2000, AVIF, TIFF JPEG; WebP, read since,
+  equal to cv2);
 - the smoke's lossless split layouts (`container_craft.LAYOUTS`) read
   back as the PNG pixels;
 - the JAX package's datasets, test set and grain records against the
@@ -534,12 +535,16 @@ def test_gif_as_cv2(size, tmp_path):
 # ------------------------------------------------------- dispatch, not yet
 
 def test_not_yet_read_containers_raise(tmp_path):
-    """WebP, JPEG 2000 and AVIF, which cv2 reads, raise a ValueError
-    naming the container as not yet read by the port; bytes no decoder
-    claims raise as cv2 returns None."""
+    """JPEG 2000 and AVIF, which cv2 reads, raise a ValueError naming
+    the container as not yet read by the port (WebP, which raised so
+    before the port read it, now reads as cv2 reads it); bytes no
+    decoder claims raise as cv2 returns None."""
     img = np.random.default_rng(12).integers(0, 256, (64, 64, 3), np.uint8)
-    for ext, what in ((".webp", "WebP"), (".jp2", "JPEG 2000"),
-                      (".avif", "AVIF")):
+    ok, enc = cv2.imencode(".webp", img)
+    assert ok
+    ref, got = _both(enc.tobytes(), tmp_path, ".webp")
+    np.testing.assert_array_equal(got, ref)
+    for ext, what in ((".jp2", "JPEG 2000"), (".avif", "AVIF")):
         ok, enc = cv2.imencode(ext, img)
         assert ok, ext
         ref, got = _both(enc.tobytes(), tmp_path, ext)

@@ -108,8 +108,9 @@ def cuda_device():
 #: of its float32 maps, every val image scored (zero overflow); "c_jpeg"
 #: is (c)'s hier decode on the committed JPEGs of those images
 #: (tests/fixtures/jpeg/val/, quality 90, 4:2:0) read with cv2.imread;
-#: "c_exact_0_7" is (c)'s exact column on val images 0-7, scored over
-#: them (`tests/jax_certification_ap.py c_exact_0_7`)
+#: "c_webp" the same on the committed q90 WebPs (tests/fixtures/webp/val/,
+#: `tests/jax_certification_ap.py c_webp`); "c_exact_0_7" is (c)'s exact
+#: column on val images 0-7, scored over them (`tests/jax_certification_ap.py c_exact_0_7`)
 JAX_AP = {"a": {"hier": (0.09725247524752474, 0.11262376237623763),
                 "exact": (0.09628712871287129, 0.11633663366336634),
                 "cpp": (0.0927062706270627, 0.11633663366336634)},
@@ -120,6 +121,7 @@ JAX_AP = {"a": {"hier": (0.09725247524752474, 0.11262376237623763),
           "c": {"hier": (0.6920563049981829, 0.8145283278327833),
                 "exact": (0.6562437697688676, 0.8091715064363579)},
           "c_jpeg": {"hier": (0.6876531846190053, 0.8105060506050605)},
+          "c_webp": {"hier": (0.6938175404800658, 0.8105060506050605)},
           "c_exact_0_7": {"exact": (0.7355486798679868,
                                     0.8985148514851485)}}
 
