@@ -67,6 +67,17 @@ after:
   WebPs of the 50 val images (floodscan, absorb, tgather) against the
   JAX package's AP on the same files, each read held to cv2's digest,
   and the host's ms per 512x1024 image for VP8 and VP8L;
+- JPEG 2000: the port's reader (`data/jp2.py`, host C++
+  `data/native/jp2.cc` built with g++ after the WebP decoders) on the
+  committed `tests/fixtures/jp2` (cv2's and Pillow's files, the
+  crafted code-block styles, progressions, POC, packed headers, colour
+  spaces, palettes and channel definitions, the files cv2 refuses and
+  those the port does not read yet) against cv2's digests, its lossless
+  files against the regenerated PNGs, procedure (c)'s hier column
+  scored from the JP2s of the 50 val images (floodscan, absorb,
+  tgather) against the JAX package's AP on the same files, each read
+  held to cv2's digest, and the host's ms per 512x1024 image for 9/7 +
+  ICT, 5/3 + RCT and cv2's own 5/3 files;
 - from here the recipes' subprocesses (below) run beside the converter,
   certification (c), containers and certification (d) phases;
 - the Cityscapes converter: the 50 regenerated val images as a gtFine
@@ -119,7 +130,7 @@ even number of cards (2 or more): the steps and serving on
 Every check raises; the exit code is 0 only when all phases pass.
 Prints one line per phase, `train {...}`, `zoo {...}`,
 `class_inference {...}`, `staged {...}`, `data {...}`, `jpeg {...}`,
-`webp {...}`, `converter {...}`, `certification_c {...}`,
+`webp {...}`, `jp2 {...}`, `converter {...}`, `certification_c {...}`,
 `containers {...}`, `certification_d {...}`,
 `recipes {...}`, `spatial {...}` and `train_aux {...}` lines
 (times, throughput, peak memory, FLOPs, shares of the bf16 peak), the
@@ -127,7 +138,7 @@ new phases' spans (`utils/profiling.Stopwatch`), the summary, then the
 card, the kernels line, and last `{"ok": true, "device": {...}}`.
 
 Needs a CUDA device and the repository around it (the port,
-tests/fixtures/certification512, images, jpeg and webp, the tests'
+tests/fixtures/certification512, images, jpeg, webp and jp2, the tests'
 shared data makers in tests/torch_port_helpers.py and the containers'
 writer in tests/container_craft.py); imports torch, numpy, scipy (the
 converter phase), pytest (through those helpers) and the standard
@@ -1528,21 +1539,22 @@ def data_phase(smi, sw, run):
 
 def start_jpeg_build():
     """The g++ builds of the JPEG decoder (`data/native/jpeg.cc`), then
-    of the raster decompressors (`data/native/codecs.cc`) and of the
-    WebP decoders (`data/native/webp.cc`) in a thread, started once the
-    kernels' nvcc build is done, so that they run beside the card phases
-    that follow; returns (thread, result dict), which the jpeg phase
-    joins (the dict holds build_s, codecs_build_s and webp_build_s, None
+    of the raster decompressors (`data/native/codecs.cc`), the WebP
+    decoders (`data/native/webp.cc`) and the JPEG 2000 decoder
+    (`data/native/jp2.cc`) in a thread, started once the kernels' nvcc
+    build is done, so that they run beside the card phases that follow;
+    returns (thread, result dict), which the jpeg phase joins (the dict
+    holds build_s, codecs_build_s, webp_build_s and jp2_build_s, None
     for a library already built, or the error)."""
     import threading
 
-    from mergenet_tpu_torch.data import codecs, jpeg, webp
+    from mergenet_tpu_torch.data import codecs, jp2, jpeg, webp
     result = {}
 
     def run():
         try:
             for key, mod in (("build_s", jpeg), ("codecs_build_s", codecs),
-                             ("webp_build_s", webp)):
+                             ("webp_build_s", webp), ("jp2_build_s", jp2)):
                 built = not os.path.exists(mod.library_path())
                 t0 = time.perf_counter()
                 mod.build()
@@ -2397,6 +2409,161 @@ def webp_phase(drive, paths, smi, sw, data_dir, built):
             "launches": launches, "ms_per_512x1024": ms, "reps": JPEG_REPS,
             "phase_s": sum(sw.totals[k] for k in (
                 "webp fixtures", "webp (c) hier", "webp timing"))}
+
+
+def jp2_phase(drive, paths, smi, sw, data_dir, built):
+    """JPEG 2000 reading (`data/jp2.py` over `data/native/jp2.cc`, built
+    by `start_jpeg_build`): every committed file of tests/fixtures/jp2
+    read by `imgproc.imread_rgb` and held to cv2's SHA-256
+    (`cv2_digests.json`; a file cv2 refuses, or one the port does not
+    read yet, must raise ValueError); the lossless files held equal to
+    the regenerated PNGs they came from; procedure (c)'s hier column
+    scored from the 50 committed val JP2s (`certify.score` on the card:
+    floodscan, absorb and tgather once per image), each of score's reads
+    held to cv2's digest (the val files are read there, once), AP and
+    AP50 within CERT_JAX_AP_TOL of JAX's `c_jp2` figure, zero overflow;
+    the host's ms per 512x1024 image for 9/7 + ICT and 5/3 + RCT files
+    (Pillow's) and cv2's own 5/3 files, lossy and lossless (JPEG_REPS
+    decodes each, in turns)."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    from mergenet_tpu_torch import certify as CT
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.data import imgproc
+
+    fixj = os.path.join(HERE, "tests", "fixtures", "jp2")
+    with open(os.path.join(fixj, "cv2_digests.json")) as f:
+        digests = json.load(f)
+    build_s = built.get("jp2_build_s")
+    val = sorted(r for r in digests if r.startswith("val/"))
+    wrong, refused, lossless_equal = [], 0, {}
+    with sw.span("jp2 fixtures"):
+        for rel, d in sorted(digests.items()):
+            if rel in val:
+                continue  # read, and held to the digests, by the scoring
+            path = os.path.join(fixj, rel)
+            if d.get("cv2", 1) is None or d.get("not_yet"):
+                try:
+                    imgproc.imread_rgb(path)
+                    wrong.append(rel)
+                except ValueError as e:
+                    refused += 1
+                    if ("not yet read by the port" in str(e)) != bool(
+                            d.get("not_yet")):
+                        wrong.append(rel)
+                continue
+            img = imgproc.imread_rgb(path)
+            if [list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()] \
+                    != [d["shape"], d["sha256"]]:
+                wrong.append(rel)
+            if "png" in d:
+                lossless_equal[rel] = bool(np.array_equal(img, io.read_png_rgb(
+                    os.path.join(data_dir, "val", d["png"]))))
+    print("  decoder %s (g++, after the nvcc build); %d committed files "
+          "outside val/ in %.2f s (%d refused as cv2 refuses them or not "
+          "yet read), %d differ from cv2: %s; lossless files equal to the "
+          "PNGs they came from: %s" % (
+              "cached" if build_s is None else "built in %.2f s" % build_s,
+              len(digests) - len(val), sw.totals["jp2 fixtures"], refused,
+              len(wrong), wrong, lossless_equal), flush=True)
+
+    jdir = os.path.join(HERE, "mergenet_tpu_torch", "_build", "jp2_data")
+    shutil.rmtree(jdir, ignore_errors=True)
+    os.makedirs(os.path.join(jdir, "annotations"))
+    shutil.copytree(os.path.join(fixj, "val"), os.path.join(jdir, "val"))
+    with open(os.path.join(data_dir, "annotations",
+                           "instancesonly_val.json")) as f:
+        ann = json.load(f)
+    for im in ann["images"]:
+        im["file_name"] = os.path.splitext(im["file_name"])[0] + ".jp2"
+    with open(os.path.join(jdir, "annotations", "instancesonly_val.json"),
+              "w") as f:
+        json.dump(ann, f)
+    offsets = io.load_offsets(FIX)
+    net = CT.load_bench_net(os.path.join(FIX, "bench_ckpt.npz"),
+                            9 + len(offsets))
+    reads, read_s = {}, [0.0]  # what certify.score read: held to cv2's
+    imread = imgproc.imread_rgb
+
+    def hashed_imread(path):
+        t0 = time.perf_counter()
+        img = imread(path)
+        read_s[0] += time.perf_counter() - t0
+        reads["val/" + os.path.basename(path)] = [
+            list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()]
+        return img
+
+    imgproc.imread_rgb = hashed_imread
+    try:
+        with sw.span("jp2 (c) hier"):
+            r = drive("jp2", lambda: CT.score(net, jdir, 9, offsets,
+                                              ("hier",)),
+                      ("floodscan", "absorb", "tgather"))
+    finally:
+        imgproc.imread_rgb = imread
+    del net
+    shutil.rmtree(jdir, ignore_errors=True)
+    reads_equal = reads == {rel: [digests[rel]["shape"],
+                                  digests[rel]["sha256"]] for rel in val}
+    ap, jref = r["hier"], JAX_AP["c_jp2"]["hier"]
+    png = JAX_AP["c"]["hier"]
+    print("  (c) hier from JPEG 2000: AP %.4f AP50 %.4f | JAX (CPU, "
+          "cv2.imread) AP %.4f AP50 %.4f | from PNG, JAX: AP %.4f AP50 "
+          "%.4f; reads of the %d JP2s equal to cv2's digests: %s (%.3f ms "
+          "per image, host, %s); %d images, overflow %s, net %.2f s, hier "
+          "%.2f s" % (
+              ap[0], ap[1], jref[0], jref[1], png[0], png[1], len(val),
+              reads_equal, read_s[0] / max(1, len(reads)) * 1e3, smi,
+              r["images"], r["overflow"], r["times_s"]["net"],
+              r["times_s"]["hier"]), flush=True)
+    launches = dict(paths["jp2"])
+    gates = [("every committed file as cv2's digest says", not wrong),
+             ("the lossless files equal to their PNGs",
+              len(lossless_equal) == 3 and all(lossless_equal.values())),
+             ("AP within %.3f of JAX's" % CERT_JAX_AP_TOL,
+              abs(ap[0] - jref[0]) <= CERT_JAX_AP_TOL),
+             ("AP50 within %.3f of JAX's" % CERT_JAX_AP_TOL,
+              abs(ap[1] - jref[1]) <= CERT_JAX_AP_TOL),
+             ("score's reads of the %d JP2s equal to cv2's digests"
+              % len(val), reads_equal),
+             ("zero overflow", not any(r["overflow"].values())),
+             ("one launch of each kernel per image",
+              all(launches.get(k) == r["images"]
+                  for k in ("floodscan", "absorb", "tgather")))]
+
+    # host ms per 512x1024 image, JPEG_REPS decodes each in turns
+    timed = {"97_ict": "pillow/val_00000_97_ict.jp2",
+             "53_rct_lossless": "pillow/val_00000_53_rct.jp2",
+             "cv2_53_lossy": "val/val_00000.jp2",
+             "cv2_53_lossless": "lossless/val_00000.jp2"}
+    spent = dict.fromkeys(timed, 0.0)
+    with sw.span("jp2 timing"):
+        for _ in range(JPEG_REPS):
+            for kind, rel in timed.items():
+                t0 = time.perf_counter()
+                imgproc.imread_rgb(os.path.join(fixj, rel))
+                spent[kind] += time.perf_counter() - t0
+    ms = {kind: spent[kind] / JPEG_REPS * 1e3 for kind in timed}
+    print("  ms per 512x1024 image, %d decodes each (host, %s): 9/7 + ICT "
+          "(157 KB) %.3f, 5/3 + RCT lossless %.3f, cv2's 5/3 at 1/10 %.3f, "
+          "cv2's 5/3 lossless %.3f" % (
+              JPEG_REPS, smi, ms["97_ict"], ms["53_rct_lossless"],
+              ms["cv2_53_lossy"], ms["cv2_53_lossless"]), flush=True)
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        raise AssertionError("jp2 gates failed: %s" % failed)
+    return {"build_s": build_s, "fixtures": len(digests), "differ": wrong,
+            "refused": refused, "lossless_equal_png": lossless_equal,
+            "ap": ap, "jax_ap": jref, "png_jax_ap": png,
+            "reads_equal_digests": reads_equal,
+            "read_ms_per_image": read_s[0] / max(1, len(reads)) * 1e3,
+            "overflow": r["overflow"], "times_s": r["times_s"],
+            "launches": launches, "ms_per_512x1024": ms, "reps": JPEG_REPS,
+            "phase_s": sum(sw.totals[k] for k in (
+                "jp2 fixtures", "jp2 (c) hier", "jp2 timing"))}
 
 
 def cert_d_phase(drive, smi, sw, data_dir):
@@ -4038,6 +4205,11 @@ def main():
           "val images")
     webp_r = webp_phase(drive, paths, smi, sw, data_dir, jpeg_build[1])
     print("webp " + json.dumps({"card": smi, **webp_r}), flush=True)
+    phase("jp2: the committed JPEG 2000 files against cv2's digests, the "
+          "lossless files against their PNGs, (c) hier from the JP2s of "
+          "the 50 val images")
+    jp2_r = jp2_phase(drive, paths, smi, sw, data_dir, jpeg_build[1])
+    print("jp2 " + json.dumps({"card": smi, **jp2_r}), flush=True)
     # the recipes' subprocesses (a host-bound chain of process starts,
     # reads and writes) run beside the converter, certification (c),
     # containers and certification (d) phases; the recipes phase joins

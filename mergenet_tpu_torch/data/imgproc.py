@@ -7,7 +7,8 @@ function here reproduces what cv2 computes, not an approximation of it:
 
     imread_rgb(path)             cv2.imread(path) + BGR -> RGB: PNG, JPEG,
                                  TIFF, BMP, PBM/PGM/PPM, PAM, PFM, Sun
-                                 raster, Radiance HDR, GIF, WebP
+                                 raster, Radiance HDR, GIF, WebP, JPEG
+                                 2000 (JP2, J2K)
     resize(img, (w, h), interpolation)
                                  cv2.resize, INTER_LINEAR (uint8, float32)
                                  and INTER_NEAREST (any dtype)
@@ -105,13 +106,26 @@ jpeg}.py` hold each row; PERF.md has the same table):
     flag, a file WebPDemux accepts)            WebPDemux keeps it
   WebP truncated, corrupt, sizes that lie,     None                ValueError
     animations WebPDemux refuses
-  JPEG 2000, AVIF                              read                ValueError
+  JPEG 2000 JP2/J2K, 5/3 and 9/7, RCT/ICT,     OpenJPEG 2.5.3      equal
+    any progression, POC, precincts, layers,
+    tiles, PPM/PPT, SOP/EPH, code-block
+    styles, RGN; 8-16 bits (>> prec - 8)
+  JPEG 2000 grey (repeated), sRGB or unknown   as OpenJPEG hands   equal
+    (components 0-2), sYCC (YUV2BGR), palette  them; alpha dropped
+    (pclr/cmap, low byte kept), cdef order
+  JPEG 2000 under 8 bits, signed, subsampled,  None                ValueError
+    origin not 0, CMYK, e-sYCC, sRGB with 1-2
+    components, truncated, corrupt
+  JPEG 2000 HTJ2K, Part 2 markers or Rsiz bit  read                ValueError
+    15, 32 levels by position, a POC leaving                       (not yet)
+    a top resolution
+  AVIF                                         read                ValueError
                                                                    (not yet)"""
 
 import numpy as np
 
 from .. import io
-from . import bmp, gif, hdr, jpeg, pxm, sunras, tiff, webp
+from . import bmp, gif, hdr, jp2, jpeg, pxm, sunras, tiff, webp
 
 INTER_NEAREST = 0
 INTER_LINEAR = 1
@@ -145,8 +159,7 @@ _DECODERS = (
     (lambda h: h[:2] in (b"PF", b"Pf") and h[2:3].isspace(), pxm.decode_pfm),
     (tiff.is_tiff, tiff.decode_tiff),
     (lambda h: h[:8] == b"\x89PNG\r\n\x1a\n", None),
-    (lambda h: h[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n"
-     or h[:4] == b"\xff\x4f\xff\x51", "JPEG 2000"),
+    (jp2.is_jp2, jp2.decode_jp2),
     (lambda h: h[:2] == b"P7" and h[2:3].isspace(), pxm.decode_pam),
     (lambda h: h[:6] in gif.SIGNATURES, gif.decode_gif),
     (_is_avif, "AVIF"),
@@ -158,7 +171,7 @@ def imread_rgb(path):
     `cv2.cvtColor(img, cv2.COLOR_BGR2RGB)` give it: the reader is chosen
     by the file's first bytes, in cv2's order, never by its name.  Each
     reader's module says what cv2 5.0 does and the port with it; in
-    short (PERF.md's PR 17 table has every variant tested):
+    short (PERF.md's tables have every variant tested):
 
         PNG   io.read_png_rgb: every colour type and depth, Adam7; the
               eXIf orientation applied
@@ -180,11 +193,14 @@ def imread_rgb(path):
         WebP  webp.decode_webp: VP8 (libwebp's fancy upsampling), VP8L,
               VP8X with alpha (dropped), the first frame of an
               animation; EXIF orientation applied
+        JP2   jp2.decode_jp2: JP2 and raw J2K, Part 1 (5/3 and 9/7,
+              RCT/ICT, every progression and packaging, code-block
+              styles, RGN); grey, sRGB, sYCC, palettes, cdef
 
     Where cv2 returns None (each module lists those files), this raises
-    ValueError naming the file and the cause; JPEG 2000 and AVIF,
-    which cv2 reads, raise a ValueError saying the port does not read
-    them yet; so do the TIFF compressions and photometric
+    ValueError naming the file and the cause; AVIF, HTJ2K and JPEG 2000
+    Part 2, which cv2 reads, raise a ValueError saying the port does not
+    read them yet; so do the TIFF compressions and photometric
     interpretations `tiff.py` names, and the PAM files with alpha that
     cv2 reads differently on every call."""
     with open(path, "rb") as f:

@@ -6,6 +6,7 @@ card's decodes to:
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c   # (c): ~17 min
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c_jpeg  # ~3 min
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c_webp  # ~3 min
+    JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c_jp2  # ~3 min
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c_exact_0_7  # 3 min
     JAX_PLATFORMS=cpu python tests/jax_certification_ap.py c_exact_0_7 \
         --save-exact tests/fixtures/certification512
@@ -37,7 +38,10 @@ JPEG encodings of the same 50 images (`tests/fixtures/jpeg/val/`,
 quality 90, 4:2:0, written by `tests/make_jpeg_fixtures.py`), read with
 `cv2.imread` as the JAX package reads images; "c_webp" is the same on
 the committed WebP encodings (`tests/fixtures/webp/val/`, quality 90,
-lossy VP8, written by `tests/make_webp_fixtures.py`).  Procedure
+lossy VP8, written by `tests/make_webp_fixtures.py`); "c_jp2" on the
+committed JPEG 2000 encodings (`tests/fixtures/jp2/val/`, cv2's writer
+at 1/10 of the raw size, written by `tests/make_jp2_fixtures.py`).
+Procedure
 "c_exact_0_7" is (c)'s exact column on val images 0-7 alone, scored
 over those 8 images (the images `chip_smoke.py` decodes exact in its
 (c) phase); `--save-exact DIR` writes each of their exact decodes to
@@ -61,6 +65,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIX = os.path.join(REPO, "tests", "fixtures", "certification512")
 JPEG_VAL = os.path.join(REPO, "tests", "fixtures", "jpeg", "val")
 WEBP_VAL = os.path.join(REPO, "tests", "fixtures", "webp", "val")
+JP2_VAL = os.path.join(REPO, "tests", "fixtures", "jp2", "val")
 SERVE_KW = dict(object_merge_factor=1.0, merge_logprob_bias=0.03)
 
 
@@ -116,9 +121,9 @@ def procedure_c(data_dir, decoders=("hier", "exact"), image_dir=None,
     "times_s": {...}}: the JAX package on the 50 val images regenerated
     by the reference generator, scored as the certification script
     scores them.  `image_dir` reads each image from there instead, under
-    its name with `ext` (procedures "c_jpeg", "c_webp"); `limit` takes the first
-    `limit` val images and scores over them alone; `save_exact` is a
-    directory for the exact masks of val images 0-7."""
+    its name with `ext` (procedures "c_jpeg", "c_webp", "c_jp2"); `limit`
+    takes the first `limit` val images and scores over them alone;
+    `save_exact` is a directory for the exact masks of val images 0-7."""
     import jax
     import jax.numpy as jnp
     import cv2
@@ -221,7 +226,7 @@ def procedure_c(data_dir, decoders=("hier", "exact"), image_dir=None,
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("procedures", nargs="*", default=["a", "b"],
-                    choices=["a", "b", "c", "c_jpeg", "c_webp",
+                    choices=["a", "b", "c", "c_jpeg", "c_webp", "c_jp2",
                              "c_exact_0_7"])
     ap.add_argument("--data", default=None,
                     help="directory for procedure (c)'s regenerated images")
@@ -249,12 +254,14 @@ def main():
         if "a" in args.procedures:
             out["a01"] = {"hier": jax_ap(coco,
                                          res["hier"][0] + res["hier"][1])}
-    for proc in ("c", "c_jpeg", "c_webp", "c_exact_0_7"):
+    for proc in ("c", "c_jpeg", "c_webp", "c_jp2", "c_exact_0_7"):
         if proc not in args.procedures:
             continue
         kw = {"c": {}, "c_jpeg": dict(decoders=("hier",), image_dir=JPEG_VAL),
               "c_webp": dict(decoders=("hier",), image_dir=WEBP_VAL,
                              ext=".webp"),
+              "c_jp2": dict(decoders=("hier",), image_dir=JP2_VAL,
+                            ext=".jp2"),
               "c_exact_0_7": dict(decoders=("exact",), limit=8)}[proc]
         if "exact" in kw.get("decoders", ("exact",)):
             kw["save_exact"] = args.save_exact

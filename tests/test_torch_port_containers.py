@@ -19,7 +19,7 @@ wherever cv2 returns None.
   transparency, frames smaller than the screen), and the same through
   cv2's own writers;
 - the dispatch on the file's first bytes, and the containers the port
-  does not read yet (JPEG 2000, AVIF, TIFF JPEG; WebP, read since,
+  does not read yet (AVIF, TIFF JPEG; WebP and JPEG 2000, read since,
   equal to cv2);
 - the smoke's lossless split layouts (`container_craft.LAYOUTS`) read
   back as the PNG pixels;
@@ -535,16 +535,17 @@ def test_gif_as_cv2(size, tmp_path):
 # ------------------------------------------------------- dispatch, not yet
 
 def test_not_yet_read_containers_raise(tmp_path):
-    """JPEG 2000 and AVIF, which cv2 reads, raise a ValueError naming
-    the container as not yet read by the port (WebP, which raised so
-    before the port read it, now reads as cv2 reads it); bytes no
+    """AVIF, which cv2 reads, raises a ValueError naming the container
+    as not yet read by the port (WebP and JPEG 2000, which raised so
+    before the port read them, now read as cv2 reads them); bytes no
     decoder claims raise as cv2 returns None."""
     img = np.random.default_rng(12).integers(0, 256, (64, 64, 3), np.uint8)
-    ok, enc = cv2.imencode(".webp", img)
-    assert ok
-    ref, got = _both(enc.tobytes(), tmp_path, ".webp")
-    np.testing.assert_array_equal(got, ref)
-    for ext, what in ((".jp2", "JPEG 2000"), (".avif", "AVIF")):
+    for ext in (".webp", ".jp2"):
+        ok, enc = cv2.imencode(ext, img)
+        assert ok
+        ref, got = _both(enc.tobytes(), tmp_path, ext)
+        np.testing.assert_array_equal(got, ref)
+    for ext, what in ((".avif", "AVIF"),):
         ok, enc = cv2.imencode(ext, img)
         assert ok, ext
         ref, got = _both(enc.tobytes(), tmp_path, ext)

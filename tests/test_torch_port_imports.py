@@ -50,13 +50,14 @@ SCRIPT = textwrap.dedent("""
               "egs.cityscape.cityscapes_labels", "data.jpeg",
               "_host_build", "data.codecs", "data.tiff", "data.bmp",
               "data.pxm", "data.sunras", "data.hdr", "data.gif",
-              "data.webp"):
+              "data.webp", "data.jp2"):
         assert "mergenet_tpu_torch." + m in mods, m
     from mergenet_tpu_torch.decoder import csegment
     from mergenet_tpu_torch.e2e import masks_to_results
     assert csegment._lib is None  # nothing is built at import
-    from mergenet_tpu_torch.data import codecs, jpeg, webp
+    from mergenet_tpu_torch.data import codecs, jp2, jpeg, webp
     assert jpeg._lib is None and codecs._lib is None and webp._lib is None
+    assert jp2._lib is None
     masks_to_results(np.ones((1, 4, 4), np.int32), np.ones((1, 1), np.int32),
                      [0], [0, 1])
     import chip_smoke
@@ -100,6 +101,10 @@ SCRIPT = textwrap.dedent("""
     for rel in ("matrix/partitions8.webp", "matrix/ll_method6.webp",
                 "matrix/anim_offset.webp"):
         assert imgproc.imread_rgb("tests/fixtures/webp/" + rel).shape \
+            == (64, 128, 3)
+    for rel in ("matrix/pil_97_layers.jp2", "matrix/pil_rpcl.jp2",
+                "matrix/pil_raw.j2k"):
+        assert imgproc.imread_rgb("tests/fixtures/jp2/" + rel).shape \
             == (64, 128, 3)
     imgproc.resize(np.zeros((8, 8, 9), np.float32), (4, 4))
     from mergenet_tpu_torch.utils.visualization import visualize_mask

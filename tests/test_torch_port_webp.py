@@ -750,8 +750,7 @@ def test_corrupt_files_as_cv2_all(tmp_path):
 def test_dispatch_as_cv2(tmp_path):
     """cv2 takes a file as WebP by WebPGetFeatures on its first 32
     bytes: a raw VP8L bitstream is read, a RIFF WebP shorter than 32
-    bytes or with an unknown first chunk is not; JPEG 2000 and AVIF
-    are still not read by the port."""
+    bytes or with an unknown first chunk is not."""
     rng = np.random.default_rng(18)
     ll = wc.encode(_scene(rng, 20, 30), lossless=True)
     _as_cv2(dict(wc.chunks(ll))[b"VP8L"], tmp_path, "raw VP8L",

@@ -109,7 +109,9 @@ def cuda_device():
 #: is (c)'s hier decode on the committed JPEGs of those images
 #: (tests/fixtures/jpeg/val/, quality 90, 4:2:0) read with cv2.imread;
 #: "c_webp" the same on the committed q90 WebPs (tests/fixtures/webp/val/,
-#: `tests/jax_certification_ap.py c_webp`); "c_exact_0_7" is (c)'s exact
+#: `tests/jax_certification_ap.py c_webp`); "c_jp2" on the committed JPEG
+#: 2000 files (tests/fixtures/jp2/val/, cv2's writer at 1/10 of the raw
+#: size, `tests/jax_certification_ap.py c_jp2`); "c_exact_0_7" is (c)'s exact
 #: column on val images 0-7, scored over them (`tests/jax_certification_ap.py c_exact_0_7`)
 JAX_AP = {"a": {"hier": (0.09725247524752474, 0.11262376237623763),
                 "exact": (0.09628712871287129, 0.11633663366336634),
@@ -122,6 +124,7 @@ JAX_AP = {"a": {"hier": (0.09725247524752474, 0.11262376237623763),
                 "exact": (0.6562437697688676, 0.8091715064363579)},
           "c_jpeg": {"hier": (0.6876531846190053, 0.8105060506050605)},
           "c_webp": {"hier": (0.6938175404800658, 0.8105060506050605)},
+          "c_jp2": {"hier": (0.6923888025323589, 0.8094588304984344)},
           "c_exact_0_7": {"exact": (0.7355486798679868,
                                     0.8985148514851485)}}
 
