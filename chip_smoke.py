@@ -78,6 +78,14 @@ after:
   tgather) against the JAX package's AP on the same files, each read
   held to cv2's digest, and the host's ms per 512x1024 image for 9/7 +
   ICT, 5/3 + RCT and cv2's own 5/3 files;
+- TIFF: the 50 committed q90 val JPEGs rewrapped as JPEG-in-TIFF
+  (`tests/tiff_craft.py`; one strip, and JPEGTables with an abbreviated
+  strip) read by `data/tiff.py` (JPEG strips through
+  `data/native/jpeg.cc`) and held to the JPEGs' cv2 digests, procedure
+  (c)'s hier column scored from them (floodscan, absorb, tgather)
+  against the jpeg phase's AP and the JAX package's `c_jpeg`, and the
+  host's ms per 512x1024 image for the TIFF kinds PR 20 reads (CCITT,
+  YCbCr, FillOrder 2, JPEG tiles);
 - from here the recipes' subprocesses (below) run beside the converter,
   certification (c), containers and certification (d) phases;
 - the Cityscapes converter: the 50 regenerated val images as a gtFine
@@ -130,7 +138,8 @@ even number of cards (2 or more): the steps and serving on
 Every check raises; the exit code is 0 only when all phases pass.
 Prints one line per phase, `train {...}`, `zoo {...}`,
 `class_inference {...}`, `staged {...}`, `data {...}`, `jpeg {...}`,
-`webp {...}`, `jp2 {...}`, `converter {...}`, `certification_c {...}`,
+`webp {...}`, `jp2 {...}`, `tiff {...}`, `converter {...}`,
+`certification_c {...}`,
 `containers {...}`, `certification_d {...}`,
 `recipes {...}`, `spatial {...}` and `train_aux {...}` lines
 (times, throughput, peak memory, FLOPs, shares of the bf16 peak), the
@@ -139,14 +148,16 @@ card, the kernels line, and last `{"ok": true, "device": {...}}`.
 
 Needs a CUDA device and the repository around it (the port,
 tests/fixtures/certification512, images, jpeg, webp and jp2, the tests'
-shared data makers in tests/torch_port_helpers.py and the containers'
-writer in tests/container_craft.py); imports torch, numpy, scipy (the
+shared data makers in tests/torch_port_helpers.py, the containers'
+writer in tests/container_craft.py and the TIFF and JPEG writers in
+tests/tiff_craft.py and tests/jpeg_craft.py); imports torch, numpy, scipy (the
 converter phase), pytest (through those helpers) and the standard
 library besides the port.  Writes nothing outside
 mergenet_tpu_torch/_build/ (the train phase's checkpoints, the synthetic
 caffemodel, the inference phases' maps, the regenerated dataset, the
 converter's tree and json, the containers split, the trained seed,
-the recipes' experiments and the spatial ranks' files go there).
+the recipes' experiments, the JPEG-in-TIFF files and the spatial
+ranks' files go there).
 """
 
 import json
@@ -2566,6 +2577,230 @@ def jp2_phase(drive, paths, smi, sw, data_dir, built):
                 "jp2 fixtures", "jp2 (c) hier", "jp2 timing"))}
 
 
+def tiff_phase(drive, paths, smi, sw, data_dir, jpeg_r):
+    """JPEG-in-TIFF reading (`data/tiff.py` over `data/native/jpeg.cc`'s
+    strip entry): the 50 committed q90 val JPEGs rewrapped as TIFFs
+    (compression 7, photometric 6, YCbCrSubsampling 2x2;
+    `tests/tiff_craft.jpeg_tiff`) in two layouts, the whole stream as
+    the one strip and its tables in a JPEGTables tag before an
+    abbreviated strip, each read by `imgproc.imread_rgb` and held to
+    cv2's digest of the JPEG (what the jpeg phase's reads were held to);
+    procedure (c)'s hier column scored from the JPEGTables layout
+    (`certify.score` on the card: floodscan, absorb and tgather once per
+    image), its reads hashed, AP and AP50 equal to the jpeg phase's of
+    this run and within CERT_JAX_AP_TOL of JAX's `c_jpeg`, zero
+    overflow; the host's ms per 512x1024 image for each layout and for
+    the other TIFF kinds this slice reads, written at 512x1024 from
+    bench_img.png (CCITT T.4 2-D and T.6, YCbCr 2x2 LZW, FillOrder 2
+    LZW with predictor 2, a 4:4:4 JPEG in 256x256 tiles as RGB, CIELab,
+    SGILog LogLuv and LogLuv24, ThunderScan raw pixels; JPEG_REPS
+    decodes each, in turns)."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    from mergenet_tpu_torch import certify as CT
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.data import imgproc
+
+    sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+    import container_craft as cc
+    import tiff_craft as tc
+
+    fixj = os.path.join(HERE, "tests", "fixtures", "jpeg")
+    with open(os.path.join(fixj, "cv2_digests.json")) as f:
+        digests = json.load(f)
+    val = sorted(r for r in digests if r.startswith("val/"))
+    tdir = os.path.join(HERE, "mergenet_tpu_torch", "_build", "tiff_data")
+    shutil.rmtree(tdir, ignore_errors=True)
+    layouts = ("strip", "tables")
+    want = {}
+    with sw.span("tiff write"):
+        for layout in layouts:
+            os.makedirs(os.path.join(tdir, layout, "val"))
+        for rel in val:
+            with open(os.path.join(fixj, rel), "rb") as f:
+                stream = f.read()
+            name = os.path.splitext(os.path.basename(rel))[0] + ".tif"
+            for layout in layouts:
+                with open(os.path.join(tdir, layout, "val", name), "wb") as f:
+                    f.write(tc.jpeg_tiff([stream], tc.jpeg_size(stream),
+                                         tables=layout == "tables"))
+            want["val/" + name] = [digests[rel]["shape"],
+                                   digests[rel]["sha256"]]
+    wrong = []
+    read_s = dict.fromkeys(layouts, 0.0)
+    with sw.span("tiff reads"):
+        for layout in layouts:
+            for rel in sorted(want):
+                t0 = time.perf_counter()
+                img = imgproc.imread_rgb(os.path.join(tdir, layout, rel))
+                read_s[layout] += time.perf_counter() - t0
+                if [list(img.shape), hashlib.sha256(
+                        img.tobytes()).hexdigest()] != want[rel]:
+                    wrong.append((layout, rel))
+    print("  %d q90 val JPEGs rewrapped as JPEG-in-TIFF in %d layouts "
+          "(%.2f s); %d reads differ from the JPEGs' cv2 digests: %s; ms "
+          "per image, first reads (host, %s): %s" % (
+              len(val), len(layouts), sw.totals["tiff write"], len(wrong),
+              wrong[:4], smi, ", ".join(
+                  "%s %.3f" % (k, read_s[k] / len(val) * 1e3)
+                  for k in layouts)), flush=True)
+
+    sdir = os.path.join(tdir, "tables")
+    os.makedirs(os.path.join(sdir, "annotations"))
+    with open(os.path.join(data_dir, "annotations",
+                           "instancesonly_val.json")) as f:
+        ann = json.load(f)
+    for im in ann["images"]:
+        im["file_name"] = os.path.splitext(im["file_name"])[0] + ".tif"
+    with open(os.path.join(sdir, "annotations", "instancesonly_val.json"),
+              "w") as f:
+        json.dump(ann, f)
+    offsets = io.load_offsets(FIX)
+    net = CT.load_bench_net(os.path.join(FIX, "bench_ckpt.npz"),
+                            9 + len(offsets))
+    reads = {}
+    imread = imgproc.imread_rgb
+
+    def hashed_imread(path):
+        img = imread(path)
+        reads["val/" + os.path.basename(path)] = [
+            list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()]
+        return img
+
+    imgproc.imread_rgb = hashed_imread
+    try:
+        with sw.span("tiff (c) hier"):
+            r = drive("tiff", lambda: CT.score(net, sdir, 9, offsets,
+                                               ("hier",)),
+                      ("floodscan", "absorb", "tgather"))
+    finally:
+        imgproc.imread_rgb = imread
+    del net
+    reads_equal = reads == want
+    ap, jref, jpeg_ap = r["hier"], JAX_AP["c_jpeg"]["hier"], jpeg_r["ap"]
+    print("  (c) hier from JPEG-in-TIFF (JPEGTables layout): AP %.4f AP50 "
+          "%.4f | this run's jpeg phase AP %.4f AP50 %.4f | JAX (CPU, "
+          "cv2.imread of the JPEGs) AP %.4f AP50 %.4f; score's reads equal "
+          "to the JPEGs' digests: %s; %d images, overflow %s, net %.2f s, "
+          "hier %.2f s" % (
+              ap[0], ap[1], jpeg_ap[0], jpeg_ap[1], jref[0], jref[1],
+              reads_equal, r["images"], r["overflow"], r["times_s"]["net"],
+              r["times_s"]["hier"]), flush=True)
+    launches = dict(paths["tiff"])
+    gates = [("every read equal to the JPEG's", not wrong),
+             ("AP and AP50 equal to the jpeg phase's",
+              list(ap) == list(jpeg_ap)),
+             ("AP within %.3f of JAX's" % CERT_JAX_AP_TOL,
+              abs(ap[0] - jref[0]) <= CERT_JAX_AP_TOL),
+             ("AP50 within %.3f of JAX's" % CERT_JAX_AP_TOL,
+              abs(ap[1] - jref[1]) <= CERT_JAX_AP_TOL),
+             ("score's reads of the %d TIFFs equal to the JPEGs' digests"
+              % len(val), reads_equal),
+             ("zero overflow", not any(r["overflow"].values())),
+             ("one launch of each kernel per image",
+              all(launches.get(k) == r["images"]
+                  for k in ("floodscan", "absorb", "tgather")))]
+
+    # host ms per 512x1024 image: the two layouts and the other kinds,
+    # written from bench_img.png, JPEG_REPS decodes each in turns
+    rgb = io.read_png_rgb(os.path.join(FIX, "bench_img.png"))
+    bilevel = (rgb.astype(np.int32).sum(-1) < 384).astype(np.uint8)
+    with open(os.path.join(fixj, val[0]), "rb") as f:
+        first = f.read()
+    tiles444 = [_jpeg_444(rgb[y:y + 256, x:x + 256])
+                for y in range(0, 512, 256) for x in range(0, 1024, 256)]
+    grey = rgb.astype(np.int64).sum(-1) // 3
+    le = 12000 + grey * 18  # log luminances about 1/64 to 1
+    luv32 = le << 16 | (rgb[..., 0].astype(np.int64) // 4 + 60) << 8 | (
+        rgb[..., 2].astype(np.int64) // 4 + 110)
+    luv24 = (le >> 6) << 14 | (rgb[..., 0].astype(np.int64) << 6 | (
+        rgb[..., 2].astype(np.int64) >> 2))
+    kinds = {
+        "jpeg_strip": tc.jpeg_tiff([first], tc.jpeg_size(first)),
+        "jpeg_tables": tc.jpeg_tiff([first], tc.jpeg_size(first),
+                                    tables=True),
+        "ccitt_t4_2d": tc.fax_tiff(bilevel, 3, options=1, fill=True,
+                                   rows_per_strip=64),
+        "ccitt_t6": tc.fax_tiff(bilevel, 4),
+        "ycbcr22_lzw": cc.tiff_bytes(rgb, photometric=6, subsampling=(2, 2),
+                                     compression=5, rows_per_strip=64),
+        "fill_order2_lzw_pred2": cc.tiff_bytes(
+            rgb, compression=5, predictor=2, rows_per_strip=64,
+            fill_order=2),
+        "jpeg_rgb_444_tiles": tc.jpeg_tiff(tiles444, (512, 1024),
+                                           photometric=2, tile=(256, 256)),
+        "cielab8": cc.tiff_bytes(rgb, photometric=8, rows_per_strip=64),
+        "sgilog_logluv": _as_compression(cc.tiff_bytes(
+            np.zeros((512, 1024, 3), np.uint8), bits=16, photometric=32845,
+            blocks=[tc.sgilog_strip(luv32, 4)]), 34676),
+        "sgilog24": _as_compression(cc.tiff_bytes(
+            np.zeros((512, 1024, 3), np.uint8), bits=16, photometric=32845,
+            blocks=[luv24.astype(">u4").view(np.uint8).reshape(
+                512, 1024, 4)[..., 1:].tobytes()]), 34677),
+        "thunderscan_raw": _as_compression(cc.tiff_bytes(
+            np.zeros((512, 1024, 1), np.uint8), bits=4, photometric=3,
+            colormap=np.arange(48).reshape(16, 3) * 1365,
+            blocks=[(0xC0 | (rgb[..., 1] >> 4)).tobytes()]), 32809)}
+    kdir = os.path.join(tdir, "kinds")
+    os.makedirs(kdir)
+    for kind, data in kinds.items():
+        with open(os.path.join(kdir, kind + ".tif"), "wb") as f:
+            f.write(data)
+    spent = dict.fromkeys(kinds, 0.0)
+    with sw.span("tiff timing"):
+        for _ in range(JPEG_REPS):
+            for kind in kinds:
+                t0 = time.perf_counter()
+                imgproc.imread_rgb(os.path.join(kdir, kind + ".tif"))
+                spent[kind] += time.perf_counter() - t0
+    ms = {kind: spent[kind] / JPEG_REPS * 1e3 for kind in kinds}
+    print("  ms per 512x1024 image, %d decodes each (host, %s): %s" % (
+        JPEG_REPS, smi, ", ".join("%s %.3f" % kv for kv in ms.items())),
+        flush=True)
+    shutil.rmtree(tdir, ignore_errors=True)
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        raise AssertionError("tiff gates failed: %s" % failed)
+    return {"files": len(val) * len(layouts), "differ": wrong,
+            "read_ms_per_image": {k: read_s[k] / len(val) * 1e3
+                                  for k in layouts},
+            "ap": ap, "jpeg_phase_ap": jpeg_ap, "jax_ap": jref,
+            "reads_equal_digests": reads_equal, "overflow": r["overflow"],
+            "times_s": r["times_s"], "launches": launches,
+            "ms_per_512x1024": ms, "reps": JPEG_REPS,
+            "phase_s": sum(sw.totals[k] for k in (
+                "tiff write", "tiff reads", "tiff (c) hier",
+                "tiff timing"))}
+
+
+def _as_compression(data, compression):
+    """A little-endian TIFF of container_craft's (compression 1) marked
+    with another compression: its strips are that codec's data."""
+    return data.replace(b"\x03\x01\x03\x00\x01\x00\x00\x00\x01\x00",
+                        b"\x03\x01\x03\x00\x01\x00\x00\x00"
+                        + compression.to_bytes(2, "little"))
+
+
+def _jpeg_444(rgb):
+    """A 4:4:4 baseline JPEG of the RGB planes of `rgb` (no colour
+    transform: a TIFF of photometric 2 reads them as they are) from the
+    tests' writer (`tests/jpeg_craft.py`: a float DCT, flat tables 8 and
+    12, T.81's Annex K Huffman tables); the port writes no JPEG."""
+    import jpeg_craft as jc
+    import numpy as np
+
+    h, w = rgb.shape[:2]
+    comps = [(1, 1, 0), (1, 1, 1), (1, 1, 1)]
+    q = {0: np.full(64, 8), 1: np.full(64, 12)}
+    coefs = [jc.dct_blocks(rgb[..., c], jc.blocks_shape(comps, c, w, h),
+                           q[min(c, 1)]) for c in range(3)]
+    return jc.write_jpeg(comps, w, h, coefs, q, jfif=False, adobe=0,
+                         annex_k=True)
+
+
 def cert_d_phase(drive, smi, sw, data_dir):
     """Procedure (d): seed 0 trained on the regenerated data through the
     port's loader (`certify.train_seed`: the compact pipeline, 24 epochs
@@ -4210,6 +4445,11 @@ def main():
           "the 50 val images")
     jp2_r = jp2_phase(drive, paths, smi, sw, data_dir, jpeg_build[1])
     print("jp2 " + json.dumps({"card": smi, **jp2_r}), flush=True)
+    phase("tiff: the 50 q90 val JPEGs rewrapped as JPEG-in-TIFF (one strip; "
+          "JPEGTables and an abbreviated strip) against the JPEGs' cv2 "
+          "digests, (c) hier from them, the new TIFF kinds timed")
+    tiff_r = tiff_phase(drive, paths, smi, sw, data_dir, jpeg_r)
+    print("tiff " + json.dumps({"card": smi, **tiff_r}), flush=True)
     # the recipes' subprocesses (a host-bound chain of process starts,
     # reads and writes) run beside the converter, certification (c),
     # containers and certification (d) phases; the recipes phase joins

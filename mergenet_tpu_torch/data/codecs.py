@@ -1,7 +1,8 @@
 """ctypes bridge to the byte-level decompressors of the port's raster
 readers (`native/codecs.cc`): TIFF LZW (new and old style), GIF LZW,
-PackBits, TIFF's horizontal predictor, BMP RLE8/RLE4 and Radiance HDR's
-run-length scanlines.  (Sun raster's byte encoding needs no decoder:
+PackBits, TIFF's horizontal predictor, CCITT fax (Modified Huffman,
+T.4, T.6), ThunderScan and SGILog (LogL, LogLuv, LogLuv24), BMP RLE8/RLE4 and Radiance HDR's run-length
+scanlines.  (Sun raster's byte encoding needs no decoder:
 cv2 refuses byte-encoded files, and `sunras.py` with it.)  The containers
 themselves (`tiff.py`, `bmp.py`, `pxm.py`, `sunras.py`, `hdr.py`,
 `gif.py`) are parsed in Python.
@@ -38,6 +39,11 @@ _SIGNATURES = {
     "mn_tiff_unpredict": (None, [_OUT, _SIZE, _SIZE, _INT, _INT, _INT]),
     "mn_bmp_rle": (_INT, [_BYTES, _SIZE, _INT, _INT, _INT, _OUT, *_ERR]),
     "mn_hdr_rle": (_INT, [_BYTES, _SIZE, _INT, _INT, _OUT, *_ERR]),
+    "mn_tiff_fax": (_INT, [_BYTES, _SIZE, _SIZE, _INT, _INT, _INT, _INT,
+                           _INT, _OUT, *_ERR]),
+    "mn_tiff_thunder": (_INT, [_BYTES, _SIZE, _INT, _INT, _OUT, *_ERR]),
+    "mn_tiff_sgilog": (_INT, [_BYTES, _SIZE, _INT, _INT, _INT, _OUT,
+                              *_ERR]),
 }
 
 
@@ -125,4 +131,36 @@ def hdr_rle(data, width, height, name="HDR"):
     out = np.zeros((height, width, 4), np.uint8)
     lib = _load()
     _call(name, lib.mn_hdr_rle, data, len(data), width, height, _ptr(out))
+    return out
+
+
+def tiff_fax(data, file_offset, scheme, options, fill_order, width, rows,
+             name="TIFF"):
+    """`rows` rows of `width` 1-bit pixels (1 black, rows padded to a
+    byte) of one strip or tile of CCITT data: `scheme` 2, 3, 4 or 32771
+    (the TIFF compression), `options` T4Options, `file_offset` where the
+    data starts in the file (libtiff aligns 32771's rows to 16 bits of
+    the file)."""
+    out = np.zeros(rows * ((width + 7) // 8), np.uint8)
+    _call(name, _load().mn_tiff_fax, data, len(data), file_offset, scheme,
+          options, fill_order, width, rows, _ptr(out))
+    return out
+
+
+def tiff_thunder(data, width, rows, name="TIFF"):
+    """`rows` rows of `width` 4-bit pixels (two to a byte) of ThunderScan
+    data."""
+    out = np.zeros(rows * ((width + 1) // 2), np.uint8)
+    _call(name, _load().mn_tiff_thunder, data, len(data), width, rows,
+          _ptr(out))
+    return out
+
+
+def tiff_sgilog(data, width, rows, kind, name="TIFF"):
+    """`rows` rows of `width` pixels of SGILog data as libtiff's 8-bit
+    output gives them: grey bytes (kind 0, LogL) or RGB triples (kind 1,
+    LogLuv; kind 2, SGILog24's LogLuv)."""
+    out = np.zeros(rows * width * (3 if kind else 1), np.uint8)
+    _call(name, _load().mn_tiff_sgilog, data, len(data), width, rows, kind,
+          _ptr(out))
     return out

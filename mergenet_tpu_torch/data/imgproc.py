@@ -47,9 +47,9 @@ function here reproduces what cv2 computes, not an approximation of it:
 `tests/test_torch_port_data_imgproc.py` holds each against cv2.
 
 What `cv2.imread` (OpenCV 5.0.0, libtiff 4.7.1, libpng 1.6.58) returns,
-measured on files of `tests/container_craft.py` and cv2's own writers,
-and what `imread_rgb` does (`tests/test_torch_port_{containers,png,
-jpeg}.py` hold each row; PERF.md has the same table):
+measured on files of `tests/{container,tiff}_craft.py` and cv2's own
+writers, and what `imread_rgb` does (`tests/test_torch_port_{containers,
+tiff_codecs,png,jpeg}.py` hold each row; PERF.md has the same table):
 
   container and variant                        cv2.imread          port
   PNG eXIf orientation 1-8, before/after IDAT  turned (imread),    equal
@@ -59,7 +59,17 @@ jpeg}.py` hold each row; PERF.md has the same table):
     one with only other tags                   over
   TIFF II/MM/BigTIFF, strips/tiles, planar     libtiff's RGBA      equal
     1/2; none, LZW (old, new), Deflate,        route
-    PackBits; predictor 2 (LZW/Deflate)
+    PackBits, ThunderScan; predictor 2
+    (LZW/Deflate); FillOrder 2
+  TIFF CCITT MH, T.4 1-D/2-D, T.6, word-       libtiff's fax3      equal
+    aligned MH (rows where libtiff reads       reader
+    them); fill bits; FillOrder 1/2
+  TIFF JPEG (7): JPEGTables or not, strips,    libjpeg's upsampl-  equal
+    tiles; YCbCr (any of {1,2,4}^2), RGB,      ing, YCbCr -> RGB
+    grey, CMYK, planar                         for contig YCbCr
+  TIFF YCbCr 11-44 (not JPEG), planar 1x1;     tif_color.c float   equal
+    CIELab 8/16; SGILog LogL, LogLuv,          tables; 8-bit LogLuv
+    LogLuv24
   TIFF grey 1/8/16, RGB 8/16 (+alpha),         16-bit grey >> 8,   equal
     palette 1/4/8, CMYK 8                      RGB (v+128)//257,
                                                unassociated alpha
@@ -72,8 +82,10 @@ jpeg}.py` hold each row; PERF.md has the same table):
   TIFF 2-bit, 4-bit not palette, 10-64-bit,    None                ValueError
     float, 1-bit RGB, > 4 samples, planar
     palette
-  TIFF JPEG, CCITT, LZMA, ZSTD; YCbCr, Lab     read or not         ValueError
-                                                                   (not yet)
+  TIFF old-style JPEG, PixarLog, LZMA, ZSTD,   None                ValueError
+    WebP, JBIG, LERC, NeXT; ICCLab, ITULab
+  TIFF JPEG 2000, unknown codecs, tiled       black, or rows not  ValueError
+    ThunderScan; corrupt data                  decoded
   BMP core..V5, 1-32 bits, short palettes,     palette past its    equal
     top-down, RLE8/RLE4                        end black; RLE4
                                                end-of-bitmap ends
@@ -180,8 +192,9 @@ def imread_rgb(path):
               EXIF orientation applied
         TIFF  tiff.decode_tiff: libtiff's RGBA route; II, MM, BigTIFF;
               strips, tiles, planes; 1-16 bits; grey, RGB, palette,
-              CMYK; none, LZW, Deflate, PackBits, predictor 2; the
-              Orientation tag
+              CMYK, YCbCr, CIELab, LogL, LogLuv; none, LZW, Deflate,
+              PackBits, CCITT, JPEG, ThunderScan, SGILog, predictor 2,
+              FillOrder 2; the Orientation tag
         BMP   bmp.decode_bmp: core to V5 headers; 1-32 bits; RLE8, RLE4,
               bitfields; top-down
         PxM   pxm.decode_pnm / decode_pam / decode_pfm: P1-P6 (ASCII,
@@ -200,8 +213,7 @@ def imread_rgb(path):
     Where cv2 returns None (each module lists those files), this raises
     ValueError naming the file and the cause; AVIF, HTJ2K and JPEG 2000
     Part 2, which cv2 reads, raise a ValueError saying the port does not
-    read them yet; so do the TIFF compressions and photometric
-    interpretations `tiff.py` names, and the PAM files with alpha that
+    read them yet; so do the PAM files with alpha that
     cv2 reads differently on every call."""
     with open(path, "rb") as f:
         data = f.read()

@@ -29,7 +29,34 @@ vendored or linked) and every decision cv2 and OpenJPEG make taken here:
 
 What cv2 refuses raises ValueError naming the file and the cause; HTJ2K
 (Part 15) and the Part 2 markers raise ValueError saying the port does
-not read them yet.  PERF.md has the table of what cv2 does, probed.
+not read them yet.  What `cv2.imread` returns, probed on cv2's,
+Pillow's (OpenJPEG 2.5.4) and `tests/j2k_craft.py`'s files, each row
+held by `tests/test_torch_port_jp2.py`:
+
+  variant                                           cv2.imread / port
+  5/3 (any level, any band origin parity), 9/7,     OpenJPEG's lifting,
+    RCT, ICT; 1-31 levels                             1.5 x 2^p, lrintf
+  LRCP, RLCP, RPCL, PCRL, CPRL; POC in the main or  read
+    tile header; precincts; 1-4 layers; tiles;
+    tile-parts in any order; TNsot 0; PPM, PPT,
+    SOP/EPH; PLT, TLM, PLM, CRG, COM
+  code-block styles (BYPASS, RESET, TERMALL, VSC,   read
+    PTERM, SEGSYM, all); 4x4 to 1024x4; RGN 1-12
+  8-16 bits, mixed precisions                       >> (max - 8), low byte
+  1-7 bits; a signed, subsampled or offset          None / ValueError
+    component; an image origin other than 0
+  colr 17 (grey), 1-4 components                    component 0 thrice
+  colr 16, unknown, ICC, none, raw J2K; 3-4 comps   components 0-2 as RGB
+  colr 18 (sYCC), 3-4 components                    cvtColor(YUV2BGR)
+  colr 12 (CMYK), 24 (e-sYCC); sRGB/sYCC or raw     None / ValueError
+    J2K with 1-2 components
+  pclr/cmap (8-16-bit entries), cdef orders,        OpenJPEG's pclr/cdef
+    alpha first or last, 65535
+  pclr without cmap, bad cmap, bad cdef             None / ValueError
+  truncated, flipped, lengths that lie (~4,300)     None or read / both
+  HTJ2K, MCT/MCC/MCO/CBD, Rsiz bit 15, 32 levels    read / ValueError
+    under RPCL/PCRL/CPRL, a POC giving a top          (not yet)
+    resolution no packet
 
 The shared library is built with g++ at the first call, never at
 import, into `mergenet_tpu_torch/_build/` by `_host_build.build`."""

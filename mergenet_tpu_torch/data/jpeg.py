@@ -56,6 +56,11 @@ def _load():
                 ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(u8p), ip,
                 ip, ip, ctypes.c_char_p, ctypes.c_int]
             lib.mn_jpeg_decode.restype = ctypes.c_int
+            lib.mn_jpeg_decode_tiff.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+                ctypes.c_size_t, ctypes.c_int, ctypes.POINTER(u8p), ip, ip,
+                ip, ctypes.c_char_p, ctypes.c_int]
+            lib.mn_jpeg_decode_tiff.restype = ctypes.c_int
             lib.mn_jpeg_free.argtypes = [u8p]
             lib.mn_jpeg_free.restype = None
             _lib = lib
@@ -94,3 +99,30 @@ def decode_jpeg(data, name="JPEG data"):
     finally:
         lib.mn_jpeg_free(out)
     return orient(img, o.value)
+
+
+def decode_tiff_block(tables, data, ycbcr, name="TIFF JPEG data"):
+    """The JPEG stream of one TIFF strip or tile (`data`, bytes) as
+    libtiff's tif_jpeg.c has libjpeg decode it, after the tables-only
+    stream of the file's JPEGTables tag (`tables`, b"" when absent):
+    `ycbcr` converts three components from YCbCr to RGB
+    (JPEGCOLORMODE_RGB), else the components come out as they are.
+    Returns ((h, w, components) uint8, (components, the first
+    component's sampling factors as h << 4 | v, whether every other
+    component's are 1x1, the sample precision)).  Raises ValueError,
+    naming `name` and the cause, on data it does not decode."""
+    lib = _load()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    h, w = ctypes.c_int(), ctypes.c_int()
+    info = (ctypes.c_int * 4)()
+    err = ctypes.create_string_buffer(256)
+    if lib.mn_jpeg_decode_tiff(tables, len(tables), data, len(data),
+                               int(bool(ycbcr)), ctypes.byref(out),
+                               ctypes.byref(h), ctypes.byref(w), info, err,
+                               len(err)):
+        raise ValueError("%s: %s" % (name, err.value.decode()))
+    try:
+        img = np.ctypeslib.as_array(out, (h.value, w.value, info[0])).copy()
+    finally:
+        lib.mn_jpeg_free(out)
+    return img, (info[0], info[1], bool(info[2]), info[3])

@@ -85,6 +85,11 @@
 // mn_jpeg_free releases, and reports the EXIF orientation (1-8, 0 when
 // absent) of the first Exif APP1 segment before the first scan whose
 // IFD0 has a readable Orientation entry; the caller applies it.
+// mn_jpeg_decode_tiff decodes a TIFF strip's or tile's stream as
+// libtiff's tif_jpeg.c has libjpeg decode it: after the tables-only
+// stream of the JPEGTables tag, converted from YCbCr to RGB or left as
+// its components are (JCS_UNKNOWN, 2 components allowed), whatever the
+// JFIF and Adobe markers say.
 
 #include <cstdarg>
 #include <cstdint>
@@ -358,9 +363,11 @@ void idct_block(const int16_t* coef, const int16_t* q, uint8_t* dst,
   }
 }
 
-// Colour spaces, as default_decompress_parms names them.
-enum Space { kGrey, kYCbCr, kRGB, kCMYK, kYCCK };
-const char* const kSpaceName[] = {"grey", "YCbCr", "RGB", "CMYK", "YCCK"};
+// Colour spaces, as default_decompress_parms names them; kRaw is
+// libtiff's JCS_UNKNOWN, the components as they are.
+enum Space { kGrey, kYCbCr, kRGB, kCMYK, kYCCK, kRaw };
+const char* const kSpaceName[] = {"grey", "YCbCr", "RGB", "CMYK", "YCCK",
+                                  "raw"};
 
 class Decoder {
  public:
@@ -368,9 +375,55 @@ class Decoder {
 
   void run() {
     if (n_ < 2 || d_[0] != 0xFF || d_[1] != 0xD8) fail("not a JPEG file");
+    markers(false);
+    output();
+  }
+
+  // A tables-only stream (a TIFF's JPEGTables: SOI, DQT, DHT, ..., EOI)
+  // read before the image's own stream, as libjpeg reads one with
+  // jpeg_read_header(FALSE).  The image stream's SOI then resets what
+  // get_soi resets: the JFIF and Adobe markers, the restart interval
+  // and the DAC conditioning; the tables stay.
+  void tables(const uint8_t* t, size_t n) {
+    const uint8_t* d = d_;
+    const size_t dn = n_;
+    d_ = t;
+    n_ = n;
+    if (n_ < 2 || d_[0] != 0xFF || d_[1] != 0xD8)
+      fail("bogus JPEGTables field");
+    markers(true);
+    d_ = d;
+    n_ = dn;
+    jfif_ = adobe_ = false;
+    restart_interval_ = 0;
+    for (int i = 0; i < 16; i++) {
+      dac_l_[i] = 0;
+      dac_u_[i] = 1;
+      dac_k_[i] = 5;
+    }
+  }
+
+  // libtiff's JPEGCOLORMODE: `ycbcr` converts three components from
+  // YCbCr to RGB whatever the markers say, else the components come out
+  // as they are (JCS_UNKNOWN in and out).  The EXIF orientation is not
+  // read.
+  void force_space(bool ycbcr) {
+    forced_ = true;
+    space_ = ycbcr ? kYCbCr : kRaw;
+  }
+
+  int components() const { return (int)comps_.size(); }
+  int sampling(int i) const { return comps_[i].h << 4 | comps_[i].v; }
+  int precision() const { return precision_; }
+
+ private:
+  // The marker segments from after SOI to EOI (or the end of the
+  // data); `tables_only` takes no frame or scan.
+  void markers(bool tables_only) {
     size_t p = 2;
     for (;;) {
       const int m = next_marker(&p);
+      if (tables_only && (m < 0 || m == 0xD9)) break;
       if (m < 0) {
         if (scans_ == 0) fail("truncated JPEG data (no image data)");
         break;  // no EOI: the data ended after a complete scan
@@ -380,6 +433,9 @@ class Decoder {
         break;
       }
       if (m == 0xD8) fail("duplicate SOI marker");
+      if (tables_only && ((m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC)
+                          || m == 0xDA))
+        fail("bogus JPEGTables field (a frame or scan in it)");
       if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
       if (p + 2 > n_) fail("truncated JPEG marker segment");
       const size_t len = (d_[p] << 8) | d_[p + 1];
@@ -409,7 +465,8 @@ class Decoder {
           if (sl >= 14 && !memcmp(s, "JFIF\0", 5)) jfif_ = true;
           break;
         case 0xE1:
-          if (!exif_ && scans_ == 0 && sl >= 6 && !memcmp(s, "Exif\0\0", 6))
+          if (!forced_ && !exif_ && scans_ == 0 && sl >= 6 &&
+              !memcmp(s, "Exif\0\0", 6))
             exif_ = exif_orientation(s + 6, sl - 6, &orientation_);
           break;
         case 0xEE:
@@ -425,9 +482,9 @@ class Decoder {
           fail("unknown JPEG marker 0x%02x", m);
       }
     }
-    output();
   }
 
+ public:
   int W = 0, H = 0, orientation_ = 0;
   std::vector<uint8_t> rgb;
 
@@ -471,7 +528,7 @@ class Decoder {
     H = (s[1] << 8) | s[2];
     W = (s[3] << 8) | s[4];
     const int nc = s[5];
-    if (nc != 1 && nc != 3 && nc != 4)
+    if (nc != 1 && nc != 3 && nc != 4 && !(nc == 2 && space_ == kRaw))
       fail("%d-component JPEG is not supported", nc);
     if (H == 0 || W == 0) fail("empty JPEG image");
     if (H > 65500 || W > 65500 || (int64_t)W * H > (1 << 30))
@@ -898,7 +955,10 @@ class Decoder {
   // only RGB and CMYK files read in colour.
   void choose_space() {
     const int nc = (int)comps_.size();
-    if (nc == 1) {
+    if (forced_) {
+      if (space_ == kYCbCr && nc != 3)
+        fail("%d-component JPEG as YCbCr", nc);
+    } else if (nc == 1) {
       space_ = kGrey;
     } else if (nc == 3) {
       if (jfif_)
@@ -913,7 +973,7 @@ class Decoder {
     } else {
       space_ = adobe_ && adobe_transform_ != 0 ? kYCCK : kCMYK;
     }
-    if (lossless_ && space_ != kRGB && space_ != kCMYK)
+    if (lossless_ && space_ != kRGB && space_ != kCMYK && space_ != kRaw)
       fail("lossless JPEG in %s is not supported (lossless mode converts "
            "no colour)", kSpaceName[space_]);
   }
@@ -1287,6 +1347,13 @@ class Decoder {
       full[i].resize(npx);
       upsample(comps_[i], full[i].data());
     }
+    if (space_ == kRaw) {  // the components interleaved, as they are
+      const size_t nc = comps_.size();
+      rgb.resize(npx * nc);
+      for (size_t i = 0; i < npx; i++)
+        for (size_t k = 0; k < nc; k++) rgb[nc * i + k] = full[k][i];
+      return;
+    }
     rgb.resize(npx * 3);
     uint8_t* o = rgb.data();
     if (space_ == kGrey) {
@@ -1418,7 +1485,7 @@ class Decoder {
   const uint8_t* d_;
   size_t n_;
   bool sof_ = false, progressive_ = false, arith_ = false, lossless_ = false;
-  bool jfif_ = false, adobe_ = false, exif_ = false;
+  bool jfif_ = false, adobe_ = false, exif_ = false, forced_ = false;
   int adobe_transform_ = 0, precision_ = 8;
   Space space_ = kGrey;
   int scans_ = 0, restart_interval_ = 0;
@@ -1472,6 +1539,46 @@ int mn_jpeg_decode(const uint8_t* data, size_t n, uint8_t** out, int* h,
   } catch (const JpegError& e) {
     snprintf(err, errlen, "%s", e.msg.c_str());
   } catch (const std::exception& e) {  // allocation failures
+    snprintf(err, errlen, "%s", e.what());
+  }
+  return 1;
+}
+
+// Decodes the JPEG stream of one TIFF strip or tile (n bytes) after the
+// tables-only stream of its JPEGTables tag (nt bytes; none when nt is
+// 0), as libtiff's tif_jpeg.c has libjpeg decode it: `ycbcr` 1 converts
+// YCbCr to RGB (JPEGCOLORMODE_RGB), 0 keeps the components as they are.
+// On success returns 0 and sets *out to a malloc'd H*W*info[0] buffer
+// (free with mn_jpeg_free), *h, *w, and info: the component count, the
+// first component's sampling factors (h << 4 | v), 1 when every other
+// component's are 1x1 (else 0), the sample precision.  On failure
+// returns 1 with the cause in err.
+int mn_jpeg_decode_tiff(const uint8_t* tables, size_t nt,
+                        const uint8_t* data, size_t n, int ycbcr,
+                        uint8_t** out, int* h, int* w, int* info, char* err,
+                        int errlen) {
+  *out = nullptr;
+  try {
+    Decoder dec(data, n);
+    dec.force_space(ycbcr != 0);
+    if (nt) dec.tables(tables, nt);
+    dec.run();
+    uint8_t* buf = (uint8_t*)malloc(dec.rgb.size());
+    if (!buf) fail("out of memory");
+    memcpy(buf, dec.rgb.data(), dec.rgb.size());
+    *out = buf;
+    *h = dec.H;
+    *w = dec.W;
+    info[0] = dec.components();
+    info[1] = dec.sampling(0);
+    info[2] = 1;
+    for (int i = 1; i < info[0]; i++)
+      if (dec.sampling(i) != 0x11) info[2] = 0;
+    info[3] = dec.precision();
+    return 0;
+  } catch (const JpegError& e) {
+    snprintf(err, errlen, "%s", e.msg.c_str());
+  } catch (const std::exception& e) {
     snprintf(err, errlen, "%s", e.what());
   }
   return 1;

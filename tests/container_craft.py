@@ -168,8 +168,13 @@ def packbits(row):
 
 # --------------------------------------------------------------------- TIFF
 
-_TYPE_FMT = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 11: "f", 12: "d",
+_TYPE_FMT = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 7: "B", 11: "f", 12: "d",
              16: "Q"}
+
+
+#: each byte with its bits in reverse order (FillOrder 2)
+_REVERSED = np.array([int("{:08b}".format(i)[::-1], 2) for i in range(256)],
+                     np.uint8)
 
 
 def _pack_rows(samples, bits, order):
@@ -185,6 +190,20 @@ def _pack_rows(samples, bits, order):
     flat = samples.reshape(h, -1).astype(np.uint8)
     b = ((flat[..., None] >> np.arange(bits - 1, -1, -1)) & 1).reshape(h, -1)
     return np.packbits(b, axis=1)
+
+
+def _pack_units(samples, hs, vs):
+    """Bytes of (h, w, 3) uint8 YCbCr samples in TIFF's subsampled data
+    units, left to right and top to bottom."""
+    h, w = samples.shape[:2]
+    uh, uw = -(-h // vs), -(-w // hs)
+    rows = np.minimum(np.arange(uh * vs), h - 1)
+    cols = np.minimum(np.arange(uw * hs), w - 1)
+    full = samples[rows][:, cols]
+    y = full[..., 0].reshape(uh, vs, uw, hs).transpose(0, 2, 1, 3).reshape(
+        uh, uw, vs * hs)
+    c = samples[::vs, ::hs, 1:]
+    return np.concatenate([y, c], -1).astype(np.uint8).tobytes()
 
 
 def _predict(samples, bits):
@@ -215,7 +234,8 @@ def tiff_bytes(samples, *, bits=8, photometric=None, planar=1,
                compression=1, predictor=1, rows_per_strip=None, tile=None,
                big_endian=False, bigtiff=False, orientation=None,
                extra_samples=None, colormap=None, sample_format=None,
-               pages=1, extra_tags=()):
+               pages=1, extra_tags=(), fill_order=1, blocks=None,
+               subsampling=None):
     """A TIFF file of `samples` (H, W, samples per pixel; ints below
     2**bits, or floats with sample_format 3): strips of
     `rows_per_strip` rows (the whole image by default) or tiles of
@@ -224,7 +244,15 @@ def tiff_bytes(samples, *, bits=8, photometric=None, planar=1,
     compression code (1, 5, 8, 32946, 32773; 6005 writes old-style LZW
     under code 5) and predictor 2 applied before it; `pages` copies of
     the IFD, each of the image turned upside down (the first is the
-    image).  extra_tags: (tag, type, values) added to each IFD."""
+    image).  extra_tags: (tag, type, values) added to each IFD.
+    fill_order 2 writes FillOrder 2 and reverses the bits of every byte
+    of each strip or tile.  `blocks`, when given, are the strips or
+    tiles as they go in the file (a codec's own output), in place of
+    those of `samples`, which then gives only the image's size and
+    samples per pixel.  `subsampling` (h, v) packs 8-bit YCbCr samples
+    into TIFF's data units (h * v Y samples, then Cb and Cr: those of
+    the unit's top-left pixel; Y past the image's edge repeats its
+    last row and column) and writes the YCbCrSubsampling tag."""
     samples = np.asarray(samples)
     if samples.ndim == 2:
         samples = samples[..., None]
@@ -241,7 +269,10 @@ def tiff_bytes(samples, *, bits=8, photometric=None, planar=1,
         img = samples if page == 0 else samples[::-1]
         planes = [img] if planar == 1 else [img[..., k:k + 1]
                                             for k in range(spp)]
-        blocks = []
+        if blocks is not None:
+            planes, page_blocks = [], list(blocks)
+        else:
+            page_blocks = []
         for plane in planes:
             if predictor == 2:
                 plane = _predict(plane, bits)
@@ -249,8 +280,13 @@ def tiff_bytes(samples, *, bits=8, photometric=None, planar=1,
                 rps = rows_per_strip or H
                 for y in range(0, H, rps):
                     part = plane[y:y + rps]
-                    raw = _pack_rows(part, bits, order).tobytes()
-                    blocks.append(_compress(raw, part.shape[0], compression))
+                    if subsampling:
+                        raw = _pack_units(part, *subsampling)
+                        rows = -(-part.shape[0] // subsampling[1])
+                    else:
+                        raw = _pack_rows(part, bits, order).tobytes()
+                        rows = part.shape[0]
+                    page_blocks.append(_compress(raw, rows, compression))
             else:
                 th, tw = tile
                 for y in range(0, H, th):
@@ -258,10 +294,18 @@ def tiff_bytes(samples, *, bits=8, photometric=None, planar=1,
                         t = np.zeros((th, tw, plane.shape[2]), plane.dtype)
                         part = plane[y:y + th, x:x + tw]
                         t[:part.shape[0], :part.shape[1]] = part
-                        raw = _pack_rows(t, bits, order).tobytes()
-                        blocks.append(_compress(raw, th, compression))
+                        if subsampling:
+                            raw = _pack_units(t, *subsampling)
+                            rows = th // subsampling[1]
+                        else:
+                            raw = _pack_rows(t, bits, order).tobytes()
+                            rows = th
+                        page_blocks.append(_compress(raw, rows, compression))
+        if fill_order == 2:
+            page_blocks = [_REVERSED[np.frombuffer(b, np.uint8)].tobytes()
+                           for b in page_blocks]
         offsets = []
-        for b in blocks:
+        for b in page_blocks:
             offsets.append(len(out))
             out += b
             if len(out) % 2:
@@ -272,13 +316,17 @@ def tiff_bytes(samples, *, bits=8, photometric=None, planar=1,
                 (277, 3, [spp]), (284, 3, [planar])]
         if tile is None:
             tags += [(273, off_t, offsets), (278, 4, [rows_per_strip or H]),
-                     (279, off_t, [len(b) for b in blocks])]
+                     (279, off_t, [len(b) for b in page_blocks])]
         else:
             tags += [(322, 4, [tile[1]]), (323, 4, [tile[0]]),
                      (324, off_t, offsets),
-                     (325, off_t, [len(b) for b in blocks])]
+                     (325, off_t, [len(b) for b in page_blocks])]
         if predictor != 1:
             tags.append((317, 3, [predictor]))
+        if fill_order != 1:
+            tags.append((266, 3, [fill_order]))
+        if subsampling:
+            tags.append((530, 3, list(subsampling)))
         if orientation is not None:
             tags.append((274, 3, [orientation]))
         if extra_samples is not None:

@@ -12,6 +12,16 @@ columns 384-511 of its 512x1024), each written once:
   PackBits), 16-bit grey and RGB TIFF; 24-bit and 8-bit grey BMP; binary
   and ASCII PPM, PGM, PBM; PAM; PFM; Sun raster; run-length and flat HDR;
   GIF;
+- by `tiff_craft` and `container_craft` with cv2's JPEG encoder and
+  `jpeg_craft` for the JPEG strips: TIFF with FillOrder 2 (LZW with
+  predictor 2, bilevel PackBits), CCITT (Modified Huffman, its
+  word-aligned variant, T.4 1-D with fill bits and 2-D, T.6 in tiles and
+  in FillOrder 2), JPEG (YCbCr 4:2:0 in one strip, 4:2:2 strips with
+  JPEGTables, RGB 4:4:4 tiles, grey, CMYK, planar YCbCr), YCbCr without
+  JPEG (2x2 LZW, 4x4 tiles, 4x1 PackBits, planar Deflate, 1x2 with
+  Rec. 709 coefficients and a studio-range ReferenceBlackWhite),
+  CIELab (8-bit strips, 16-bit LZW tiles with a WhitePoint), SGILog
+  (LogL, LogLuv and LogLuv24), a ThunderScan palette image;
 - by `container_craft` (cv2 writes none of them): TIFF tiled, planar,
   palette, 1-bit min-is-white, CMYK, unassociated alpha, big-endian
   BigTIFF, orientation 3 over several strips, 16-bit grey tiles with a
@@ -44,6 +54,8 @@ BENCH = os.path.join(HERE, "fixtures", "certification512", "bench_img.png")
 sys.path.insert(0, HERE)
 
 import container_craft as cc  # noqa: E402
+import jpeg_craft as jc  # noqa: E402
+import tiff_craft as tc  # noqa: E402
 
 
 def rgb_digest(path):
@@ -168,7 +180,126 @@ def crafted(rgb):
                   transparent=5, table=pal16)], screen=(w, h),
             global_table=pal16[::-1], background=3),
     }
+    out.update(tiff_codecs(rgb))
     return out
+
+
+def _jpeg(img, sampling=cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420):
+    a = img[..., ::-1] if img.ndim == 3 else img
+    ok, enc = cv2.imencode(".jpg", np.ascontiguousarray(a), [
+        cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+        sampling])
+    assert ok
+    return enc.tobytes()
+
+
+def _sgilog(data, compression=34676):
+    """`data` (little-endian, compression 1) marked SGILog (34676) or
+    SGILog24 (34677)."""
+    return data.replace(b"\x03\x01\x03\x00\x01\x00\x00\x00\x01\x00",
+                        b"\x03\x01\x03\x00\x01\x00\x00\x00"
+                        + compression.to_bytes(2, "little"))
+
+
+def tiff_codecs(rgb):
+    """{name: file bytes} of the TIFF codecs and interpretations read
+    since the containers slice: FillOrder 2, CCITT, JPEG, YCbCr without
+    JPEG, CIELab, SGILog, ThunderScan."""
+    h, w = rgb.shape[:2]
+    grey = (rgb.astype(np.int64) @ [77, 150, 29] >> 8).astype(np.uint8)
+    bilevel = (grey < 128).astype(np.uint8)
+    ycc = cv2.cvtColor(np.ascontiguousarray(rgb), cv2.COLOR_RGB2YCrCb)[
+        ..., [0, 2, 1]]
+    s444 = cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444
+    s422 = cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422
+    strips16 = [_jpeg(rgb[y:y + 16], s422) for y in range(0, h, 16)]
+    tiles = [_jpeg(rgb[y:y + 32, x:x + 64], s444)
+             for y in range(0, h, 32) for x in range(0, w, 64)]
+    cmyk = np.concatenate([255 - rgb, grey[..., None] // 4], -1)
+    comps = [(1, 1, 0)] * 4
+    cmyk_jpeg = jc.write_jpeg(comps, w, h, [jc.dct_blocks(
+        cmyk[..., c], jc.blocks_shape(comps, c, w, h), np.full(64, 6))
+        for c in range(4)], {0: np.full(64, 6)}, jfif=False, adobe=0)
+    rng = np.random.default_rng(20)
+    cmap = rng.integers(0, 65536, (16, 3))
+    thunder = [b"".join(tc.thunder_row(rng, w) for _ in range(16))
+               for _ in range(h // 16)]
+    idx4 = np.zeros((h, w, 1), np.uint8)
+    lab = cv2.cvtColor(np.ascontiguousarray(rgb), cv2.COLOR_RGB2Lab)
+    lab = np.concatenate([lab[..., :1], (lab[..., 1:].astype(np.int64)
+                                         - 128) % 256], -1)
+    lum = np.maximum(grey.astype(np.float64) / 255, 1e-3) ** 2
+    le = np.round(256 * (np.log2(lum) + 64)).astype(np.int64)
+    uv = ((rgb[..., 0].astype(np.int64) // 4 + 60) << 8) | (
+        rgb[..., 2].astype(np.int64) // 4 + 110)
+    return {
+        "tiff/fill_order2_lzw_pred2.tif": cc.tiff_bytes(
+            rgb, compression=5, predictor=2, rows_per_strip=16,
+            fill_order=2),
+        "tiff/fill_order2_bilevel_packbits.tif": cc.tiff_bytes(
+            bilevel, bits=1, photometric=0, compression=32773,
+            fill_order=2),
+        "tiff/ccitt_mh.tif": tc.fax_tiff(bilevel, 2),
+        "tiff/ccitt_mh_word.tif": tc.fax_tiff(bilevel, 32771,
+                                              rows_per_strip=24),
+        "tiff/ccitt_t4_1d_fill.tif": tc.fax_tiff(bilevel, 3, fill=True,
+                                                 photometric=1),
+        "tiff/ccitt_t4_2d.tif": tc.fax_tiff(bilevel, 3, options=1, k=4,
+                                            rows_per_strip=32),
+        "tiff/ccitt_t6_tiles.tif": tc.fax_tiff(bilevel, 4, tile=(32, 48)),
+        "tiff/ccitt_t6_fill_order2.tif": tc.fax_tiff(bilevel, 4,
+                                                     fill_order=2),
+        "tiff/jpeg_ycbcr420.tif": tc.jpeg_tiff([_jpeg(rgb)], (h, w)),
+        "tiff/jpeg_ycbcr422_tables_strips.tif": tc.jpeg_tiff(
+            strips16, (h, w), subsampling=(2, 1), tables=True,
+            rows_per_strip=16),
+        "tiff/jpeg_rgb444_tiles.tif": tc.jpeg_tiff(
+            tiles, (h, w), photometric=2, tile=(32, 64)),
+        "tiff/jpeg_grey.tif": tc.jpeg_tiff([_jpeg(grey)], (h, w), spp=1,
+                                           photometric=1),
+        "tiff/jpeg_cmyk.tif": tc.jpeg_tiff([cmyk_jpeg], (h, w), spp=4,
+                                           photometric=5),
+        "tiff/jpeg_planar_ycbcr.tif": tc.jpeg_tiff(
+            [_jpeg(np.ascontiguousarray(ycc[..., c])) for c in range(3)],
+            (h, w), planar=2, subsampling=(1, 1)),
+        "tiff/ycbcr22_lzw.tif": cc.tiff_bytes(
+            ycc, photometric=6, subsampling=(2, 2), compression=5,
+            rows_per_strip=15),
+        "tiff/ycbcr44_tiles.tif": cc.tiff_bytes(
+            ycc, photometric=6, subsampling=(4, 4), tile=(48, 80)),
+        "tiff/ycbcr41_packbits.tif": cc.tiff_bytes(
+            ycc, photometric=6, subsampling=(4, 1), compression=32773),
+        "tiff/ycbcr_planar_deflate.tif": cc.tiff_bytes(
+            ycc, photometric=6, planar=2, compression=8,
+            extra_tags=[(530, 3, [1, 1])]),
+        "tiff/ycbcr12_rec709.tif": cc.tiff_bytes(
+            ycc, photometric=6, subsampling=(1, 2), extra_tags=[
+                (529, 5, [(2126, 10000), (7152, 10000), (722, 10000)]),
+                (532, 5, [(16, 1), (235, 1), (128, 1), (240, 1), (128, 1),
+                          (240, 1)])]),
+        "tiff/cielab8.tif": cc.tiff_bytes(lab, photometric=8,
+                                          rows_per_strip=16),
+        "tiff/cielab16_lzw_tiles.tif": cc.tiff_bytes(
+            lab * 257, bits=16, photometric=8, compression=5,
+            tile=(32, 64), extra_tags=[(318, 5, [(3127, 10000),
+                                                 (3290, 10000)])]),
+        "tiff/sgilog_logl.tif": _sgilog(cc.tiff_bytes(
+            np.zeros((h, w, 1), np.uint8), bits=16, photometric=32844,
+            blocks=[tc.sgilog_strip(le, 2)])),
+        "tiff/sgilog_logluv.tif": _sgilog(cc.tiff_bytes(
+            np.zeros((h, w, 3), np.uint8), bits=16, photometric=32845,
+            blocks=[tc.sgilog_strip(le << 16 | uv, 4)])),
+        "tiff/sgilog24_logluv.tif": _sgilog(cc.tiff_bytes(
+            np.zeros((h, w, 3), np.uint8), bits=16, photometric=32845,
+            blocks=[(((le >> 6).clip(1, 1023) << 14) | (uv & 0x3fff)).astype(
+                ">u4").view(np.uint8).reshape(h, w, 4)[..., 1:].tobytes()]),
+            34677),
+        "tiff/thunderscan_palette.tif": cc.tiff_bytes(
+            idx4, bits=4, photometric=3, colormap=cmap, rows_per_strip=16,
+            blocks=thunder).replace(
+                b"\x03\x01\x03\x00\x01\x00\x00\x00\x01\x00",
+                b"\x03\x01\x03\x00\x01\x00\x00\x00\x29\x80"),
+    }
 
 
 def main():

@@ -190,19 +190,36 @@ def test_tiff_cv2_written_and_multipage_as_cv2(tmp_path):
 
 
 def test_tiff_not_yet_read(tmp_path):
-    """JPEG (7), CCITT, LZMA and ZSTD compressions and YCbCr raise as
-    not yet read by the port, whatever cv2 does with them."""
+    """No TIFF cv2 reads raises as not yet read by the port any more:
+    SGILog24 (34677), the last of them, reads as cv2 reads it; the codecs
+    cv2's libtiff is built without
+    (old-style JPEG, PixarLog, LZMA, ZSTD, WebP, JBIG, LERC) raise as cv2
+    refuses them, and those libtiff has no decoder for (cv2 returns a
+    black image) raise naming that.  JPEG (7) and CCITT (2, 3, 4) data
+    that is not theirs raise as cv2 refuses it or returns what it could
+    not decode."""
     img = np.zeros((16, 16, 3), np.uint8)
-    for comp in (7, 6, 3, 4, 34925, 50000):
-        b = cc.tiff_bytes(img, compression=1)
-        b = b.replace(b"\x03\x01\x03\x00\x01\x00\x00\x00\x01\x00",
-                      b"\x03\x01\x03\x00\x01\x00\x00\x00"
-                      + comp.to_bytes(2, "little"))
-        _, got = _both(b, tmp_path, ".tif")
-        assert isinstance(got, ValueError) and "not yet read by the port" \
-            in str(got), (comp, got)
-    _, got = _both(cc.tiff_bytes(img, photometric=6), tmp_path, ".tif")
-    assert "not yet read by the port" in str(got)
+
+    def with_compression(comp, **kw):
+        b = cc.tiff_bytes(img, compression=1, **kw)
+        return b.replace(b"\x03\x01\x03\x00\x01\x00\x00\x00\x01\x00",
+                         b"\x03\x01\x03\x00\x01\x00\x00\x00"
+                         + comp.to_bytes(2, "little"))
+
+    ref, got = _both(with_compression(34677, photometric=32845), tmp_path,
+                     ".tif")
+    np.testing.assert_array_equal(got, ref)
+    for comp in (6, 32909, 34925, 50000, 50001, 34661, 34887):
+        ref, got = _both(with_compression(comp), tmp_path, ".tif")
+        assert ref is None and "cv2 does not read" in str(got), (comp, got)
+    for comp in (34712, 32908, 32947, 9):
+        ref, got = _both(with_compression(comp), tmp_path, ".tif")
+        assert ref is not None and not ref.any(), comp
+        assert "libtiff has no decoder" in str(got), (comp, got)
+    for comp in (7, 3, 4, 34676):
+        ref, got = _both(with_compression(comp), tmp_path, ".tif")
+        assert isinstance(got, ValueError), comp
+        assert ref is None or not ref.any(), comp
 
 
 # ---------------------------------------------------------------------- BMP
