@@ -2426,15 +2426,17 @@ def jp2_phase(drive, paths, smi, sw, data_dir, built):
     """JPEG 2000 reading (`data/jp2.py` over `data/native/jp2.cc`, built
     by `start_jpeg_build`): every committed file of tests/fixtures/jp2
     read by `imgproc.imread_rgb` and held to cv2's SHA-256
-    (`cv2_digests.json`; a file cv2 refuses, or one the port does not
-    read yet, must raise ValueError); the lossless files held equal to
-    the regenerated PNGs they came from; procedure (c)'s hier column
+    (`cv2_digests.json`; a file cv2 refuses must raise ValueError), the
+    HTJ2K and Part 2 files among them; the four lossless files (an HTJ2K
+    one among them) held equal to the regenerated PNGs they came from;
+    procedure (c)'s hier column
     scored from the 50 committed val JP2s (`certify.score` on the card:
     floodscan, absorb and tgather once per image), each of score's reads
     held to cv2's digest (the val files are read there, once), AP and
     AP50 within CERT_JAX_AP_TOL of JAX's `c_jp2` figure, zero overflow;
     the host's ms per 512x1024 image for 9/7 + ICT and 5/3 + RCT files
-    (Pillow's) and cv2's own 5/3 files, lossy and lossless (JPEG_REPS
+    (Pillow's), cv2's own 5/3 files, lossy and lossless, and the HTJ2K
+    files (5/3 + RCT lossless, 9/7 + ICT in three HT passes; JPEG_REPS
     decodes each, in turns)."""
     import hashlib
     import shutil
@@ -2456,15 +2458,12 @@ def jp2_phase(drive, paths, smi, sw, data_dir, built):
             if rel in val:
                 continue  # read, and held to the digests, by the scoring
             path = os.path.join(fixj, rel)
-            if d.get("cv2", 1) is None or d.get("not_yet"):
+            if d.get("cv2", 1) is None:
                 try:
                     imgproc.imread_rgb(path)
                     wrong.append(rel)
-                except ValueError as e:
+                except ValueError:
                     refused += 1
-                    if ("not yet read by the port" in str(e)) != bool(
-                            d.get("not_yet")):
-                        wrong.append(rel)
                 continue
             img = imgproc.imread_rgb(path)
             if [list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()] \
@@ -2474,9 +2473,9 @@ def jp2_phase(drive, paths, smi, sw, data_dir, built):
                 lossless_equal[rel] = bool(np.array_equal(img, io.read_png_rgb(
                     os.path.join(data_dir, "val", d["png"]))))
     print("  decoder %s (g++, after the nvcc build); %d committed files "
-          "outside val/ in %.2f s (%d refused as cv2 refuses them or not "
-          "yet read), %d differ from cv2: %s; lossless files equal to the "
-          "PNGs they came from: %s" % (
+          "outside val/ in %.2f s (%d refused as cv2 refuses them), %d "
+          "differ from cv2: %s; lossless files equal to the PNGs they came "
+          "from: %s" % (
               "cached" if build_s is None else "built in %.2f s" % build_s,
               len(digests) - len(val), sw.totals["jp2 fixtures"], refused,
               len(wrong), wrong, lossless_equal), flush=True)
@@ -2533,7 +2532,9 @@ def jp2_phase(drive, paths, smi, sw, data_dir, built):
     launches = dict(paths["jp2"])
     gates = [("every committed file as cv2's digest says", not wrong),
              ("the lossless files equal to their PNGs",
-              len(lossless_equal) == 3 and all(lossless_equal.values())),
+              len(lossless_equal) == 4 and all(lossless_equal.values())),
+             ("the lossless HTJ2K read of val 0 equal to its PNG",
+              lossless_equal.get("ht/val_00000_53_rct_ht.jp2") is True),
              ("AP within %.3f of JAX's" % CERT_JAX_AP_TOL,
               abs(ap[0] - jref[0]) <= CERT_JAX_AP_TOL),
              ("AP50 within %.3f of JAX's" % CERT_JAX_AP_TOL,
@@ -2549,7 +2550,9 @@ def jp2_phase(drive, paths, smi, sw, data_dir, built):
     timed = {"97_ict": "pillow/val_00000_97_ict.jp2",
              "53_rct_lossless": "pillow/val_00000_53_rct.jp2",
              "cv2_53_lossy": "val/val_00000.jp2",
-             "cv2_53_lossless": "lossless/val_00000.jp2"}
+             "cv2_53_lossless": "lossless/val_00000.jp2",
+             "ht_53_rct_lossless": "ht/val_00000_53_rct_ht.jp2",
+             "ht_97_ict": "ht/val_00000_97_ict_ht.jp2"}
     spent = dict.fromkeys(timed, 0.0)
     with sw.span("jp2 timing"):
         for _ in range(JPEG_REPS):
@@ -2560,9 +2563,11 @@ def jp2_phase(drive, paths, smi, sw, data_dir, built):
     ms = {kind: spent[kind] / JPEG_REPS * 1e3 for kind in timed}
     print("  ms per 512x1024 image, %d decodes each (host, %s): 9/7 + ICT "
           "(157 KB) %.3f, 5/3 + RCT lossless %.3f, cv2's 5/3 at 1/10 %.3f, "
-          "cv2's 5/3 lossless %.3f" % (
+          "cv2's 5/3 lossless %.3f; HTJ2K 5/3 + RCT lossless (1.1 MB) %.3f, "
+          "HTJ2K 9/7 + ICT, 3 passes (249 KB) %.3f" % (
               JPEG_REPS, smi, ms["97_ict"], ms["53_rct_lossless"],
-              ms["cv2_53_lossy"], ms["cv2_53_lossless"]), flush=True)
+              ms["cv2_53_lossy"], ms["cv2_53_lossless"],
+              ms["ht_53_rct_lossless"], ms["ht_97_ict"]), flush=True)
     failed = [g for g, ok in gates if not ok]
     if failed:
         raise AssertionError("jp2 gates failed: %s" % failed)

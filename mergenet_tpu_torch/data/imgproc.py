@@ -121,16 +121,17 @@ tiff_codecs,png,jpeg}.py` hold each row; PERF.md has the same table):
   JPEG 2000 JP2/J2K, 5/3 and 9/7, RCT/ICT,     OpenJPEG 2.5.3      equal
     any progression, POC, precincts, layers,
     tiles, PPM/PPT, SOP/EPH, code-block
-    styles, RGN; 8-16 bits (>> prec - 8)
+    styles, RGN; 8-16 bits (>> prec - 8);
+    HTJ2K code-blocks; Part 2 MCT/MCC/MCO/CBD
+    and Rsiz bit 15; 32 levels by position;
+    a POC leaving a top resolution
   JPEG 2000 grey (repeated), sRGB or unknown   as OpenJPEG hands   equal
     (components 0-2), sYCC (YUV2BGR), palette  them; alpha dropped
     (pclr/cmap, low byte kept), cdef order
   JPEG 2000 under 8 bits, signed, subsampled,  None                ValueError
     origin not 0, CMYK, e-sYCC, sRGB with 1-2
-    components, truncated, corrupt
-  JPEG 2000 HTJ2K, Part 2 markers or Rsiz bit  read                ValueError
-    15, 32 levels by position, a POC leaving                       (not yet)
-    a top resolution
+    components, truncated, corrupt; HT passes
+    over layers, 4+ HT passes, mixed HT
   AVIF                                         read                ValueError
                                                                    (not yet)"""
 

@@ -27,11 +27,13 @@ vendored or linked) and every decision cv2 and OpenJPEG make taken here:
   (14-bit fixed point);
 - cv2's image size limits (2^20 a side, 2^30 pixels) apply.
 
-What cv2 refuses raises ValueError naming the file and the cause; HTJ2K
-(Part 15) and the Part 2 markers raise ValueError saying the port does
-not read them yet.  What `cv2.imread` returns, probed on cv2's,
-Pillow's (OpenJPEG 2.5.4) and `tests/j2k_craft.py`'s files, each row
-held by `tests/test_torch_port_jp2.py`:
+What cv2 refuses raises ValueError naming the file and the cause; the
+port refuses no JPEG 2000 file cv2 reads, but for corrupt HT data where
+OpenJPEG's MEL check depends on the buffer's address.  What
+`cv2.imread` returns, probed on cv2's, Pillow's (OpenJPEG 2.5.4) and
+`tests/j2k_craft.py`'s files (its HT encoder's among them), each row
+held by `tests/test_torch_port_jp2.py` or
+`tests/test_torch_port_jp2_ht.py`:
 
   variant                                           cv2.imread / port
   5/3 (any level, any band origin parity), 9/7,     OpenJPEG's lifting,
@@ -54,9 +56,38 @@ held by `tests/test_torch_port_jp2.py`:
     alpha first or last, 65535
   pclr without cmap, bad cmap, bad cdef             None / ValueError
   truncated, flipped, lengths that lie (~4,300)     None or read / both
-  HTJ2K, MCT/MCC/MCO/CBD, Rsiz bit 15, 32 levels    read / ValueError
-    under RPCL/PCRL/CPRL, a POC giving a top          (not yet)
-    resolution no packet
+  HT (style 0x40): 1-3 passes, 5/3 and 9/7, 4x4     OpenJPEG's HT decoder:
+    to 1024x4, every progression, precincts,          read
+    tiles, VSC, MagSgn 0xFF stuffing, 8-16 bits,
+    a block's passes in one layer (or TERMALL
+    layers); HT on some components only (COC);
+    CAP, Rsiz 0x4000
+  HT with a block's passes over several layers      None / ValueError
+    (the later pass joins the cleanup segment:
+    Scup or segment length refused), 4+ passes,
+    RGN, Mb over 30, the mixed bit 0x80
+  HT data flipped (2,000 files, 1-3 bytes each)     1,340 equal, 659 both
+                                                      refuse, 1 the port
+                                                      refuses (a MEL check
+                                                      that depends on the
+                                                      buffer's address)
+  MCT/MCC/MCO: an offset array; MCO alone;          DC shifts from the
+    records OpenJPEG skips (Zmct, Ymct, Zmcc,         array; MCO zeroes
+    Ymcc, 2+ collections, shuffled indices);          them; skipped
+    CBD; Rsiz bit 15; ATK, DFS markers                records change
+                                                      nothing; CBD sets
+                                                      precision and sign
+  MCT/MCC/MCO/CBD of wrong sizes, an MCC naming     None / ValueError
+    no MCT record, COD MCT byte 2+, COD/COC
+    transform 2+ (an ATK wavelet)
+  32 levels under RPCL, PCRL, CPRL                  read (OpenJPEG's 32-bit
+                                                      shift by 32 is the
+                                                      x86 shift by 0)
+  a POC giving a top resolution no packet           that resolution top
+                                                      left, 0 elsewhere;
+                                                      None with the MCT
+                                                      and components at
+                                                      different ones
 
 The shared library is built with g++ at the first call, never at
 import, into `mergenet_tpu_torch/_build/` by `_host_build.build`."""
@@ -82,7 +113,6 @@ JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
 J2K_SIGNATURE = b"\xff\x4f\xff\x51"
 MAX_SIDE, MAX_PIXELS = 1 << 20, 1 << 30  # cv2's CV_IO_MAX_IMAGE_*
 GRAY, SYCC, EYCC, CMYK = 17, 18, 24, 12  # colr enumerated spaces
-_NOT_YET = 2
 
 
 def is_jp2(head):
@@ -122,10 +152,6 @@ def _load():
 
 
 class _Refused(Exception):
-    pass
-
-
-class _NotYet(Exception):
     pass
 
 
@@ -351,10 +377,7 @@ def _decode_codestream(cs, ihdr_wh):
     h = lib.mn_j2k_decode(cs, len(cs), ihdr_wh[0], ihdr_wh[1],
                           ctypes.byref(code), err, len(err))
     if not h:
-        msg = err.value.decode("latin-1")
-        if code.value == _NOT_YET:
-            raise _NotYet(msg)
-        raise _Refused(msg)
+        raise _Refused(err.value.decode("latin-1"))
     try:
         n = lib.mn_j2k_info(h, None, 0)
         info = np.zeros(n, np.int32)
@@ -481,15 +504,12 @@ def _yuv_to_rgb(y, u, v):
 
 def decode_jp2(data, path):
     """(H, W, 3) uint8 RGB of a JP2 file or raw J2K codestream's bytes,
-    as cv2.imread + BGR2RGB give it; ValueError naming `path` where cv2
-    returns None, or where the port does not read the file yet."""
+    as cv2.imread + BGR2RGB give it; ValueError naming `path` and the
+    cause where cv2 returns None."""
     try:
         return _decode(data)
     except _Refused as e:
         raise ValueError("%s: JPEG 2000 refused as cv2 refuses it: %s"
-                         % (path, e)) from None
-    except _NotYet as e:
-        raise ValueError("%s: JPEG 2000 with %s, not yet read by the port"
                          % (path, e)) from None
 
 

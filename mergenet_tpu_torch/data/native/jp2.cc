@@ -1,7 +1,8 @@
-// JPEG 2000 Part 1 codestream decoding for the port's `data/jp2.py`,
-// written from ITU-T T.800 for the port, with OpenJPEG 2.5's arithmetic
-// wherever it decides the bits that cv2.imread returns (OpenCV 5.0 reads
-// JPEG 2000 through OpenJPEG 2.5.3; no OpenJPEG is vendored or linked):
+// JPEG 2000 codestream decoding for the port's `data/jp2.py`, written
+// from ITU-T T.800 (Part 1) and T.814 (Part 15, HTJ2K) for the port,
+// with OpenJPEG 2.5's arithmetic wherever it decides the bits that
+// cv2.imread returns (OpenCV 5.0 reads JPEG 2000 through OpenJPEG 2.5.3;
+// no OpenJPEG is vendored or linked):
 //
 // - tier 1 (T.800 Annex D): the MQ decoder (C.3, INITDEC/BYTEIN with an
 //   artificial 0xFF 0xFF after each segment), the significance,
@@ -10,9 +11,16 @@
 //   SEGSYM; coefficients carry one fractional bit, so that a sample made
 //   significant at bit-plane p holds 1.5 * 2^p and each refinement adds
 //   or takes 2^(p-1) (OpenJPEG's reconstruction point);
+// - HT code-blocks (code-block style 0x40; T.814 clause 7): the cleanup
+//   pass (MEL, the VLC with OpenJPEG's two context tables, UVLC,
+//   MagSgn), SigProp and MagRef, each stream unstuffed as
+//   opj_t1_ht_decode_cblk unstuffs it, and its limits refused (ROI, more
+//   than 3 passes, Mb over 30, Scup, MEL, U_q and VLC checks); the mixed
+//   HT bit (0x80) is refused where the COD/COC is read;
 // - RGN max-shift: |v| >= 2^s is shifted down by s, in that doubled scale;
 // - tier 2 (Annex B): tag trees, inclusion, zero bit-planes, passes and
-//   Lblock, segments (BYPASS, TERMALL), SOP/EPH, PPM/PPT packed headers,
+//   Lblock, segments (BYPASS, TERMALL; HT: a packet's first segment one
+//   cleanup pass, a later one the rest), SOP/EPH, PPM/PPT packed headers,
 //   the five progressions and POC (main header POCs first, then the
 //   tile's, as OpenJPEG appends them), each packet decoded once;
 // - dequantisation: reversible v / 2 (truncating); irreversible
@@ -24,10 +32,16 @@
 //   lone odd sample is halved), 9/7 in float with OpenJPEG's constants
 //   and step order (opj_v8dwt_decode: lows * K, highs * 1.625732422f,
 //   then delta, gamma, beta, alpha as w += (l + r) * c; a lone sample
-//   is left as it is);
+//   is left as it is); stopped, as OpenJPEG stops it, at the highest
+//   resolution that had a packet;
 // - RCT / ICT (ICT in float as opj_mct_decode_real orders it), the DC
 //   level shift and the clamp to the precision, the float samples
-//   rounded by lrintf (half to even).
+//   rounded by lrintf (half to even);
+// - Part 2 markers as OpenJPEG 2.5.3 reads them: MCT, MCC and MCO
+//   (an MCC collection's offset array becomes the DC level shifts, MCO
+//   zeroes them), CBD (the components' precision and sign); CAP, CPF and
+//   Rsiz's Part 2 and HT bits change nothing; COD's MCT byte 2 and the
+//   ATK wavelets (COD/COC transform 2+) are refused.
 //
 // Float code must not be contracted into fused multiply-adds: the
 // library is built with -ffp-contract=off and no -march (SSE2 on x86-64),
@@ -35,9 +49,7 @@
 //
 // What OpenJPEG refuses in its strict mode is refused here: truncated
 // tile-parts, segments past the tile's data, markers out of place or of
-// bad sizes.  HTJ2K (code-block style 0x40, the CAP marker) and the
-// Part 2 markers (MCT, MCC, MCO, CBD, ATK-style Rsiz) are reported as
-// not yet read.
+// bad sizes.
 
 #include <algorithm>
 #include <cmath>
@@ -55,12 +67,6 @@ struct Fail {
 };
 
 [[noreturn]] void fail(const std::string& m) { throw Fail{m}; }
-
-const int NOT_YET = 2;  // return code: a feature the port does not read yet
-
-struct NotYet {
-  std::string msg;
-};
 
 inline uint32_t ceildiv(uint32_t a, uint32_t b) {
   return (uint32_t)(((uint64_t)a + b - 1) / b);
@@ -100,6 +106,22 @@ struct Poc {
   uint32_t resno0, compno0, layno1, resno1, compno1, prg;
 };
 
+// Part 2 records as OpenJPEG keeps them (opj_mct_data_t and
+// opj_simple_mcc_decorrelation_data_t), a collection's arrays as indices
+// into the MCT records
+struct MctRecord {
+  uint32_t index = 0, element_type = 0;
+  std::vector<uint8_t> data;
+};
+
+struct MccRecord {
+  uint32_t index = 0, nb_comps = 0;
+  int deco = -1, offset = -1;
+};
+
+// bytes per MCT element: int16, int32, float32, float64 (Imct bits 10-11)
+const uint32_t MCT_ELEMENT_SIZE[4] = {2, 4, 4, 8};
+
 struct TCP {
   uint32_t csty = 0, prg = 0, numlayers = 0, mct = 0;
   std::vector<TCCP> tccps;
@@ -111,6 +133,11 @@ struct TCP {
   std::vector<uint8_t> ppt_data;
   size_t ppt_pos = 0;
   std::vector<uint8_t> data;
+  // MCT and MCC records; `mccs` keeps one slot past `nb_mcc`, which a
+  // collection being read fills before it counts
+  std::vector<MctRecord> mcts;
+  std::vector<MccRecord> mccs;
+  uint32_t nb_mcc = 0;
   bool has_data = false;  // a tile-part with an SOD was read
   int32_t cur_part = -1;
   uint32_t nb_parts = 0;
@@ -227,6 +254,7 @@ struct Seg {
 struct Cblk {
   int32_t x0, y0, x1, y1;
   uint32_t numbps = 0, numlenbits = 0, numsegs = 0, numnewpasses = 0;
+  uint32_t Mb = 0;  // the band's Mb, set where the code-block is included
   std::vector<Seg> segs;
   std::vector<uint8_t> data;
 };
@@ -670,6 +698,694 @@ bool decode_cblk(T1& t1, Cblk& cb, uint32_t orient, uint32_t roishift,
   return true;
 }
 
+// ------------------------------------------------------------------ HTJ2K
+//
+// HT code-blocks (ITU-T T.814, JPEG 2000 Part 15), decoded as OpenJPEG
+// 2.5.3's opj_t1_ht_decode_cblk decodes them: the cleanup pass (MEL
+// events, the VLC read backwards from the end of the cleanup segment,
+// UVLC and MagSgn), then the SigProp and MagRef passes of the second
+// segment.  A sample holds sign | magnitude with one fractional bit, as
+// the Part 1 decoder's do: (2 mu + 1) << (p - 1) after the cleanup pass,
+// where p is the code-block's number of bit-planes (numbps).
+//
+// The two context VLC tables are OpenJPEG's vlc_tbl0 / vlc_tbl1
+// (t1_ht_luts.h: bits 0-2 the codeword length, 3 u_off, 4-7 rho, 8-11
+// e_1, 12-15 e_k; index context << 7 | the next 7 bits).  They were read
+// out of the OpenJPEG 2.5.3 linked into OpenCV 5.0.0's cv2 module (file
+// offsets 0x3ff5800 and 0x3ff5000 of cv2.abi3.so) and agree entry for
+// entry with the copy in Pillow's libopenjp2 2.5.4 and with FFmpeg's
+// dec_cxt_vlc_table0 / 1 (libavcodec 62, whose entries pack the same
+// fields as u_off | len << 1 | rho << 4 | e_k << 8 | e_1 << 12).
+
+const uint16_t VLC_TBL0[1024] = {
+    0x0023, 0x00a5, 0x0043, 0x0066, 0x0083, 0xa8ee, 0x0014, 0xd8df,
+    0x0023, 0x10be, 0x0043, 0xf5ff, 0x0083, 0x207e, 0x0055, 0x515f,
+    0x0023, 0x0035, 0x0043, 0x444e, 0x0083, 0xc4ce, 0x0014, 0xcccf,
+    0x0023, 0xe2fe, 0x0043, 0x99ff, 0x0083, 0x0096, 0x00c5, 0x313f,
+    0x0023, 0x00a5, 0x0043, 0x445e, 0x0083, 0xc8ce, 0x0014, 0x11df,
+    0x0023, 0xf4fe, 0x0043, 0xfcff, 0x0083, 0x009e, 0x0055, 0x0077,
+    0x0023, 0x0035, 0x0043, 0xf1ff, 0x0083, 0x88ae, 0x0014, 0x00b7,
+    0x0023, 0xf8fe, 0x0043, 0xe4ef, 0x0083, 0x888e, 0x00c5, 0x111f,
+    0x0023, 0x00a5, 0x0043, 0x0066, 0x0083, 0xa8ee, 0x0014, 0x54df,
+    0x0023, 0x10be, 0x0043, 0x22ef, 0x0083, 0x207e, 0x0055, 0x227f,
+    0x0023, 0x0035, 0x0043, 0x444e, 0x0083, 0xc4ce, 0x0014, 0x11bf,
+    0x0023, 0xe2fe, 0x0043, 0x00f7, 0x0083, 0x0096, 0x00c5, 0x223f,
+    0x0023, 0x00a5, 0x0043, 0x445e, 0x0083, 0xc8ce, 0x0014, 0x00d7,
+    0x0023, 0xf4fe, 0x0043, 0xbaff, 0x0083, 0x009e, 0x0055, 0x006f,
+    0x0023, 0x0035, 0x0043, 0xe6ff, 0x0083, 0x88ae, 0x0014, 0xa2af,
+    0x0023, 0xf8fe, 0x0043, 0x00e7, 0x0083, 0x888e, 0x00c5, 0x222f,
+    0x0002, 0x00c5, 0x0084, 0x207e, 0x0002, 0xc4ce, 0x0024, 0x00f7,
+    0x0002, 0xa2fe, 0x0044, 0x0056, 0x0002, 0x009e, 0x0014, 0x00d7,
+    0x0002, 0x10be, 0x0084, 0x0066, 0x0002, 0x88ae, 0x0024, 0x11df,
+    0x0002, 0xa8ee, 0x0044, 0x0036, 0x0002, 0x888e, 0x0014, 0x111f,
+    0x0002, 0x00c5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0x88ff,
+    0x0002, 0xb8fe, 0x0044, 0x444e, 0x0002, 0x0096, 0x0014, 0x00b7,
+    0x0002, 0xe4fe, 0x0084, 0x445e, 0x0002, 0x00a6, 0x0024, 0x00e7,
+    0x0002, 0x54de, 0x0044, 0x222e, 0x0002, 0x003e, 0x0014, 0x0077,
+    0x0002, 0x00c5, 0x0084, 0x207e, 0x0002, 0xc4ce, 0x0024, 0xf1ff,
+    0x0002, 0xa2fe, 0x0044, 0x0056, 0x0002, 0x009e, 0x0014, 0x11bf,
+    0x0002, 0x10be, 0x0084, 0x0066, 0x0002, 0x88ae, 0x0024, 0x22ef,
+    0x0002, 0xa8ee, 0x0044, 0x0036, 0x0002, 0x888e, 0x0014, 0x227f,
+    0x0002, 0x00c5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0xe4ef,
+    0x0002, 0xb8fe, 0x0044, 0x444e, 0x0002, 0x0096, 0x0014, 0xa2af,
+    0x0002, 0xe4fe, 0x0084, 0x445e, 0x0002, 0x00a6, 0x0024, 0xd8df,
+    0x0002, 0x54de, 0x0044, 0x222e, 0x0002, 0x003e, 0x0014, 0x515f,
+    0x0002, 0x0055, 0x0084, 0x0066, 0x0002, 0x88de, 0x0024, 0x32ff,
+    0x0002, 0x11fe, 0x0044, 0x444e, 0x0002, 0x00ae, 0x0014, 0x00b7,
+    0x0002, 0x317e, 0x0084, 0x515e, 0x0002, 0x00c6, 0x0024, 0x00d7,
+    0x0002, 0x20ee, 0x0044, 0x111e, 0x0002, 0x009e, 0x0014, 0x0077,
+    0x0002, 0x0055, 0x0084, 0x545e, 0x0002, 0x44ce, 0x0024, 0x00e7,
+    0x0002, 0xf1fe, 0x0044, 0x0036, 0x0002, 0x00a6, 0x0014, 0x555f,
+    0x0002, 0x74fe, 0x0084, 0x113e, 0x0002, 0x20be, 0x0024, 0x747f,
+    0x0002, 0xc4de, 0x0044, 0xf8ff, 0x0002, 0x0096, 0x0014, 0x222f,
+    0x0002, 0x0055, 0x0084, 0x0066, 0x0002, 0x88de, 0x0024, 0x00f7,
+    0x0002, 0x11fe, 0x0044, 0x444e, 0x0002, 0x00ae, 0x0014, 0x888f,
+    0x0002, 0x317e, 0x0084, 0x515e, 0x0002, 0x00c6, 0x0024, 0xc8cf,
+    0x0002, 0x20ee, 0x0044, 0x111e, 0x0002, 0x009e, 0x0014, 0x006f,
+    0x0002, 0x0055, 0x0084, 0x545e, 0x0002, 0x44ce, 0x0024, 0xd1df,
+    0x0002, 0xf1fe, 0x0044, 0x0036, 0x0002, 0x00a6, 0x0014, 0x227f,
+    0x0002, 0x74fe, 0x0084, 0x113e, 0x0002, 0x20be, 0x0024, 0x22bf,
+    0x0002, 0xc4de, 0x0044, 0x22ef, 0x0002, 0x0096, 0x0014, 0x323f,
+    0x0003, 0xd4de, 0xf4fd, 0xfcff, 0x0014, 0x113e, 0x0055, 0x888f,
+    0x0003, 0x32be, 0x0085, 0x00e7, 0x0025, 0x515e, 0xaafe, 0x727f,
+    0x0003, 0x44ce, 0xf8fd, 0x44ef, 0x0014, 0x647e, 0x0045, 0xa2af,
+    0x0003, 0x00a6, 0x555d, 0x99df, 0xf1fd, 0x0036, 0xf5fe, 0x626f,
+    0x0003, 0xd1de, 0xf4fd, 0xe6ff, 0x0014, 0x717e, 0x0055, 0xb1bf,
+    0x0003, 0x88ae, 0x0085, 0xd5df, 0x0025, 0x444e, 0xf2fe, 0x667f,
+    0x0003, 0x00c6, 0xf8fd, 0xe2ef, 0x0014, 0x545e, 0x0045, 0x119f,
+    0x0003, 0x0096, 0x555d, 0xc8cf, 0xf1fd, 0x111e, 0xc8ee, 0x0067,
+    0x0003, 0xd4de, 0xf4fd, 0xf3ff, 0x0014, 0x113e, 0x0055, 0x11bf,
+    0x0003, 0x32be, 0x0085, 0xd8df, 0x0025, 0x515e, 0xaafe, 0x222f,
+    0x0003, 0x44ce, 0xf8fd, 0x00f7, 0x0014, 0x647e, 0x0045, 0x989f,
+    0x0003, 0x00a6, 0x555d, 0x00d7, 0xf1fd, 0x0036, 0xf5fe, 0x446f,
+    0x0003, 0xd1de, 0xf4fd, 0xb9ff, 0x0014, 0x717e, 0x0055, 0x00b7,
+    0x0003, 0x88ae, 0x0085, 0xdcdf, 0x0025, 0x444e, 0xf2fe, 0x0077,
+    0x0003, 0x00c6, 0xf8fd, 0xe4ef, 0x0014, 0x545e, 0x0045, 0x737f,
+    0x0003, 0x0096, 0x555d, 0xb8bf, 0xf1fd, 0x111e, 0xc8ee, 0x323f,
+    0x0002, 0x00a5, 0x0084, 0x407e, 0x0002, 0x10de, 0x0024, 0x11df,
+    0x0002, 0x72fe, 0x0044, 0x0056, 0x0002, 0xa8ae, 0x0014, 0xb2bf,
+    0x0002, 0x0096, 0x0084, 0x0066, 0x0002, 0x00c6, 0x0024, 0x00e7,
+    0x0002, 0xc8ee, 0x0044, 0x222e, 0x0002, 0x888e, 0x0014, 0x0077,
+    0x0002, 0x00a5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0x00f7,
+    0x0002, 0x91fe, 0x0044, 0x0036, 0x0002, 0xa2ae, 0x0014, 0xaaaf,
+    0x0002, 0xb8fe, 0x0084, 0x005e, 0x0002, 0x00be, 0x0024, 0xc4cf,
+    0x0002, 0x44ee, 0x0044, 0xf4ff, 0x0002, 0x223e, 0x0014, 0x111f,
+    0x0002, 0x00a5, 0x0084, 0x407e, 0x0002, 0x10de, 0x0024, 0x99ff,
+    0x0002, 0x72fe, 0x0044, 0x0056, 0x0002, 0xa8ae, 0x0014, 0x00b7,
+    0x0002, 0x0096, 0x0084, 0x0066, 0x0002, 0x00c6, 0x0024, 0x00d7,
+    0x0002, 0xc8ee, 0x0044, 0x222e, 0x0002, 0x888e, 0x0014, 0x444f,
+    0x0002, 0x00a5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0xe2ef,
+    0x0002, 0x91fe, 0x0044, 0x0036, 0x0002, 0xa2ae, 0x0014, 0x447f,
+    0x0002, 0xb8fe, 0x0084, 0x005e, 0x0002, 0x00be, 0x0024, 0x009f,
+    0x0002, 0x44ee, 0x0044, 0x76ff, 0x0002, 0x223e, 0x0014, 0x313f,
+    0x0003, 0x00c6, 0x0085, 0xd9ff, 0xf2fd, 0x647e, 0xf1fe, 0x99bf,
+    0x0003, 0xa2ae, 0x0025, 0x66ef, 0xf4fd, 0x0056, 0xe2ee, 0x737f,
+    0x0003, 0x98be, 0x0045, 0x00f7, 0xf8fd, 0x0066, 0x76fe, 0x889f,
+    0x0003, 0x888e, 0x0015, 0xd5df, 0x00a5, 0x222e, 0x98de, 0x444f,
+    0x0003, 0xb2be, 0x0085, 0xfcff, 0xf2fd, 0x226e, 0x0096, 0x00b7,
+    0x0003, 0xaaae, 0x0025, 0xd1df, 0xf4fd, 0x0036, 0xd4de, 0x646f,
+    0x0003, 0xa8ae, 0x0045, 0xeaef, 0xf8fd, 0x445e, 0xe8ee, 0x717f,
+    0x0003, 0x323e, 0x0015, 0xc4cf, 0x00a5, 0xfaff, 0x88ce, 0x313f,
+    0x0003, 0x00c6, 0x0085, 0x77ff, 0xf2fd, 0x647e, 0xf1fe, 0xb3bf,
+    0x0003, 0xa2ae, 0x0025, 0x00e7, 0xf4fd, 0x0056, 0xe2ee, 0x0077,
+    0x0003, 0x98be, 0x0045, 0xe4ef, 0xf8fd, 0x0066, 0x76fe, 0x667f,
+    0x0003, 0x888e, 0x0015, 0x00d7, 0x00a5, 0x222e, 0x98de, 0x333f,
+    0x0003, 0xb2be, 0x0085, 0x75ff, 0xf2fd, 0x226e, 0x0096, 0x919f,
+    0x0003, 0xaaae, 0x0025, 0x99df, 0xf4fd, 0x0036, 0xd4de, 0x515f,
+    0x0003, 0xa8ae, 0x0045, 0xecef, 0xf8fd, 0x445e, 0xe8ee, 0x727f,
+    0x0003, 0x323e, 0x0015, 0xb1bf, 0x00a5, 0xf3ff, 0x88ce, 0x111f,
+    0x0003, 0x54de, 0xf2fd, 0x111e, 0x0014, 0x647e, 0xf8fe, 0xcccf,
+    0x0003, 0x91be, 0x0045, 0x22ef, 0x0025, 0x222e, 0xf3fe, 0x888f,
+    0x0003, 0x00c6, 0x0085, 0x00f7, 0x0014, 0x115e, 0xfcfe, 0xa8af,
+    0x0003, 0x00a6, 0x0035, 0xc8df, 0xf1fd, 0x313e, 0x66fe, 0x646f,
+    0x0003, 0xc8ce, 0xf2fd, 0xf5ff, 0x0014, 0x0066, 0xf4fe, 0xbabf,
+    0x0003, 0x22ae, 0x0045, 0x00e7, 0x0025, 0x323e, 0xeafe, 0x737f,
+    0x0003, 0xb2be, 0x0085, 0x55df, 0x0014, 0x0056, 0x717e, 0x119f,
+    0x0003, 0x0096, 0x0035, 0xc4cf, 0xf1fd, 0x333e, 0xe8ee, 0x444f,
+    0x0003, 0x54de, 0xf2fd, 0x111e, 0x0014, 0x647e, 0xf8fe, 0x99bf,
+    0x0003, 0x91be, 0x0045, 0xe2ef, 0x0025, 0x222e, 0xf3fe, 0x667f,
+    0x0003, 0x00c6, 0x0085, 0xe4ef, 0x0014, 0x115e, 0xfcfe, 0x989f,
+    0x0003, 0x00a6, 0x0035, 0x00d7, 0xf1fd, 0x313e, 0x66fe, 0x226f,
+    0x0003, 0xc8ce, 0xf2fd, 0xb9ff, 0x0014, 0x0066, 0xf4fe, 0x00b7,
+    0x0003, 0x22ae, 0x0045, 0xd1df, 0x0025, 0x323e, 0xeafe, 0x0077,
+    0x0003, 0xb2be, 0x0085, 0xecef, 0x0014, 0x0056, 0x717e, 0x727f,
+    0x0003, 0x0096, 0x0035, 0xb8bf, 0xf1fd, 0x333e, 0xe8ee, 0x545f,
+    0xf1fc, 0xd1de, 0xfafd, 0x00d7, 0xf8fc, 0x0016, 0xfffd, 0x747f,
+    0xf4fc, 0x717e, 0xf3fd, 0xb3bf, 0xf2fc, 0xeaef, 0xe8ee, 0x444f,
+    0xf1fc, 0x22ae, 0x0005, 0xb8bf, 0xf8fc, 0x00f7, 0xfcfe, 0x0077,
+    0xf4fc, 0x115e, 0xf5fd, 0x757f, 0xf2fc, 0xd8df, 0xe2ee, 0x333f,
+    0xf1fc, 0xb2be, 0xfafd, 0x88cf, 0xf8fc, 0xfbff, 0xfffd, 0x737f,
+    0xf4fc, 0x006e, 0xf3fd, 0x00b7, 0xf2fc, 0x66ef, 0xf9fe, 0x313f,
+    0xf1fc, 0x009e, 0x0005, 0xbabf, 0xf8fc, 0xfdff, 0xf6fe, 0x0067,
+    0xf4fc, 0x0026, 0xf5fd, 0x888f, 0xf2fc, 0xdcdf, 0xd4de, 0x222f,
+    0xf1fc, 0xd1de, 0xfafd, 0xc4cf, 0xf8fc, 0x0016, 0xfffd, 0x727f,
+    0xf4fc, 0x717e, 0xf3fd, 0x99bf, 0xf2fc, 0xecef, 0xe8ee, 0x0047,
+    0xf1fc, 0x22ae, 0x0005, 0x00a7, 0xf8fc, 0xf7ff, 0xfcfe, 0x0057,
+    0xf4fc, 0x115e, 0xf5fd, 0x0097, 0xf2fc, 0xd5df, 0xe2ee, 0x0037,
+    0xf1fc, 0xb2be, 0xfafd, 0x00c7, 0xf8fc, 0xfeff, 0xfffd, 0x667f,
+    0xf4fc, 0x006e, 0xf3fd, 0xa8af, 0xf2fc, 0x00e7, 0xf9fe, 0x323f,
+    0xf1fc, 0x009e, 0x0005, 0xb1bf, 0xf8fc, 0xe4ef, 0xf6fe, 0x545f,
+    0xf4fc, 0x0026, 0xf5fd, 0x0087, 0xf2fc, 0x99df, 0xd4de, 0x111f
+};
+const uint16_t VLC_TBL1[1024] = {
+    0x0013, 0x0065, 0x0043, 0x00de, 0x0083, 0x888d, 0x0023, 0x444e,
+    0x0013, 0x00a5, 0x0043, 0x88ae, 0x0083, 0x0035, 0x0023, 0x00d7,
+    0x0013, 0x00c5, 0x0043, 0x009e, 0x0083, 0x0055, 0x0023, 0x222e,
+    0x0013, 0x0095, 0x0043, 0x007e, 0x0083, 0x10fe, 0x0023, 0x0077,
+    0x0013, 0x0065, 0x0043, 0x88ce, 0x0083, 0x888d, 0x0023, 0x111e,
+    0x0013, 0x00a5, 0x0043, 0x005e, 0x0083, 0x0035, 0x0023, 0x00e7,
+    0x0013, 0x00c5, 0x0043, 0x00be, 0x0083, 0x0055, 0x0023, 0x11ff,
+    0x0013, 0x0095, 0x0043, 0x003e, 0x0083, 0x40ee, 0x0023, 0xa2af,
+    0x0013, 0x0065, 0x0043, 0x00de, 0x0083, 0x888d, 0x0023, 0x444e,
+    0x0013, 0x00a5, 0x0043, 0x88ae, 0x0083, 0x0035, 0x0023, 0x44ef,
+    0x0013, 0x00c5, 0x0043, 0x009e, 0x0083, 0x0055, 0x0023, 0x222e,
+    0x0013, 0x0095, 0x0043, 0x007e, 0x0083, 0x10fe, 0x0023, 0x00b7,
+    0x0013, 0x0065, 0x0043, 0x88ce, 0x0083, 0x888d, 0x0023, 0x111e,
+    0x0013, 0x00a5, 0x0043, 0x005e, 0x0083, 0x0035, 0x0023, 0xc4cf,
+    0x0013, 0x00c5, 0x0043, 0x00be, 0x0083, 0x0055, 0x0023, 0x00f7,
+    0x0013, 0x0095, 0x0043, 0x003e, 0x0083, 0x40ee, 0x0023, 0x006f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0014, 0x0001, 0x00d7,
+    0x0001, 0x0024, 0x0001, 0x0096, 0x0001, 0x0045, 0x0001, 0x0077,
+    0x0001, 0x0084, 0x0001, 0x00c6, 0x0001, 0x0014, 0x0001, 0x888f,
+    0x0001, 0x0024, 0x0001, 0x00f7, 0x0001, 0x0035, 0x0001, 0x222f,
+    0x0001, 0x0084, 0x0001, 0x40fe, 0x0001, 0x0014, 0x0001, 0x00b7,
+    0x0001, 0x0024, 0x0001, 0x00bf, 0x0001, 0x0045, 0x0001, 0x0067,
+    0x0001, 0x0084, 0x0001, 0x00a6, 0x0001, 0x0014, 0x0001, 0x444f,
+    0x0001, 0x0024, 0x0001, 0x00e7, 0x0001, 0x0035, 0x0001, 0x113f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0014, 0x0001, 0x00cf,
+    0x0001, 0x0024, 0x0001, 0x0096, 0x0001, 0x0045, 0x0001, 0x006f,
+    0x0001, 0x0084, 0x0001, 0x00c6, 0x0001, 0x0014, 0x0001, 0x009f,
+    0x0001, 0x0024, 0x0001, 0x00ef, 0x0001, 0x0035, 0x0001, 0x323f,
+    0x0001, 0x0084, 0x0001, 0x40fe, 0x0001, 0x0014, 0x0001, 0x00af,
+    0x0001, 0x0024, 0x0001, 0x44ff, 0x0001, 0x0045, 0x0001, 0x005f,
+    0x0001, 0x0084, 0x0001, 0x00a6, 0x0001, 0x0014, 0x0001, 0x007f,
+    0x0001, 0x0024, 0x0001, 0x00df, 0x0001, 0x0035, 0x0001, 0x111f,
+    0x0001, 0x0024, 0x0001, 0x0056, 0x0001, 0x0085, 0x0001, 0x00bf,
+    0x0001, 0x0014, 0x0001, 0x00f7, 0x0001, 0x00c6, 0x0001, 0x0077,
+    0x0001, 0x0024, 0x0001, 0xf8ff, 0x0001, 0x0045, 0x0001, 0x007f,
+    0x0001, 0x0014, 0x0001, 0x00df, 0x0001, 0x00a6, 0x0001, 0x313f,
+    0x0001, 0x0024, 0x0001, 0x222e, 0x0001, 0x0085, 0x0001, 0x00b7,
+    0x0001, 0x0014, 0x0001, 0x44ef, 0x0001, 0xa2ae, 0x0001, 0x0067,
+    0x0001, 0x0024, 0x0001, 0x51ff, 0x0001, 0x0045, 0x0001, 0x0097,
+    0x0001, 0x0014, 0x0001, 0x00cf, 0x0001, 0x0036, 0x0001, 0x223f,
+    0x0001, 0x0024, 0x0001, 0x0056, 0x0001, 0x0085, 0x0001, 0xb2bf,
+    0x0001, 0x0014, 0x0001, 0x40ef, 0x0001, 0x00c6, 0x0001, 0x006f,
+    0x0001, 0x0024, 0x0001, 0x72ff, 0x0001, 0x0045, 0x0001, 0x009f,
+    0x0001, 0x0014, 0x0001, 0x00d7, 0x0001, 0x00a6, 0x0001, 0x444f,
+    0x0001, 0x0024, 0x0001, 0x222e, 0x0001, 0x0085, 0x0001, 0xa8af,
+    0x0001, 0x0014, 0x0001, 0x00e7, 0x0001, 0xa2ae, 0x0001, 0x005f,
+    0x0001, 0x0024, 0x0001, 0x44ff, 0x0001, 0x0045, 0x0001, 0x888f,
+    0x0001, 0x0014, 0x0001, 0xaaaf, 0x0001, 0x0036, 0x0001, 0x111f,
+    0x0002, 0xf8fe, 0x0024, 0x0056, 0x0002, 0x00b6, 0x0085, 0x66ff,
+    0x0002, 0x00ce, 0x0014, 0x111e, 0x0002, 0x0096, 0x0035, 0xa8af,
+    0x0002, 0x00f6, 0x0024, 0x313e, 0x0002, 0x00a6, 0x0045, 0xb3bf,
+    0x0002, 0xb2be, 0x0014, 0xf5ff, 0x0002, 0x0066, 0x517e, 0x545f,
+    0x0002, 0xf2fe, 0x0024, 0x222e, 0x0002, 0x22ae, 0x0085, 0x44ef,
+    0x0002, 0x00c6, 0x0014, 0xf4ff, 0x0002, 0x0076, 0x0035, 0x447f,
+    0x0002, 0x40de, 0x0024, 0x323e, 0x0002, 0x009e, 0x0045, 0x00d7,
+    0x0002, 0x88be, 0x0014, 0xfaff, 0x0002, 0x115e, 0xf1fe, 0x444f,
+    0x0002, 0xf8fe, 0x0024, 0x0056, 0x0002, 0x00b6, 0x0085, 0xc8ef,
+    0x0002, 0x00ce, 0x0014, 0x111e, 0x0002, 0x0096, 0x0035, 0x888f,
+    0x0002, 0x00f6, 0x0024, 0x313e, 0x0002, 0x00a6, 0x0045, 0x44df,
+    0x0002, 0xb2be, 0x0014, 0xa8ff, 0x0002, 0x0066, 0x517e, 0x006f,
+    0x0002, 0xf2fe, 0x0024, 0x222e, 0x0002, 0x22ae, 0x0085, 0x00e7,
+    0x0002, 0x00c6, 0x0014, 0xe2ef, 0x0002, 0x0076, 0x0035, 0x727f,
+    0x0002, 0x40de, 0x0024, 0x323e, 0x0002, 0x009e, 0x0045, 0xb1bf,
+    0x0002, 0x88be, 0x0014, 0x73ff, 0x0002, 0x115e, 0xf1fe, 0x333f,
+    0x0001, 0x0084, 0x0001, 0x20ee, 0x0001, 0x00c5, 0x0001, 0xc4cf,
+    0x0001, 0x0044, 0x0001, 0x32ff, 0x0001, 0x0015, 0x0001, 0x888f,
+    0x0001, 0x0084, 0x0001, 0x0066, 0x0001, 0x0025, 0x0001, 0x00af,
+    0x0001, 0x0044, 0x0001, 0x22ef, 0x0001, 0x00a6, 0x0001, 0x005f,
+    0x0001, 0x0084, 0x0001, 0x444e, 0x0001, 0x00c5, 0x0001, 0xcccf,
+    0x0001, 0x0044, 0x0001, 0x00f7, 0x0001, 0x0015, 0x0001, 0x006f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0025, 0x0001, 0x009f,
+    0x0001, 0x0044, 0x0001, 0x00df, 0x0001, 0x30fe, 0x0001, 0x222f,
+    0x0001, 0x0084, 0x0001, 0x20ee, 0x0001, 0x00c5, 0x0001, 0xc8cf,
+    0x0001, 0x0044, 0x0001, 0x11ff, 0x0001, 0x0015, 0x0001, 0x0077,
+    0x0001, 0x0084, 0x0001, 0x0066, 0x0001, 0x0025, 0x0001, 0x007f,
+    0x0001, 0x0044, 0x0001, 0x00e7, 0x0001, 0x00a6, 0x0001, 0x0037,
+    0x0001, 0x0084, 0x0001, 0x444e, 0x0001, 0x00c5, 0x0001, 0x00b7,
+    0x0001, 0x0044, 0x0001, 0x00bf, 0x0001, 0x0015, 0x0001, 0x003f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0025, 0x0001, 0x0097,
+    0x0001, 0x0044, 0x0001, 0x00d7, 0x0001, 0x30fe, 0x0001, 0x111f,
+    0x0002, 0xa8ee, 0x0044, 0x888e, 0x0002, 0x00d6, 0x00c5, 0xf3ff,
+    0x0002, 0xfcfe, 0x0025, 0x003e, 0x0002, 0x00b6, 0x0055, 0xd8df,
+    0x0002, 0xf8fe, 0x0044, 0x0066, 0x0002, 0x207e, 0x0085, 0x99ff,
+    0x0002, 0x00e6, 0x00f5, 0x0036, 0x0002, 0x00a6, 0x0015, 0x009f,
+    0x0002, 0xf2fe, 0x0044, 0x0076, 0x0002, 0x44ce, 0x00c5, 0x76ff,
+    0x0002, 0xf1fe, 0x0025, 0x444e, 0x0002, 0x00ae, 0x0055, 0xc8cf,
+    0x0002, 0xf4fe, 0x0044, 0x445e, 0x0002, 0x10be, 0x0085, 0xe4ef,
+    0x0002, 0x54de, 0x00f5, 0x111e, 0x0002, 0x0096, 0x0015, 0x222f,
+    0x0002, 0xa8ee, 0x0044, 0x888e, 0x0002, 0x00d6, 0x00c5, 0xfaff,
+    0x0002, 0xfcfe, 0x0025, 0x003e, 0x0002, 0x00b6, 0x0055, 0x11bf,
+    0x0002, 0xf8fe, 0x0044, 0x0066, 0x0002, 0x207e, 0x0085, 0x22ef,
+    0x0002, 0x00e6, 0x00f5, 0x0036, 0x0002, 0x00a6, 0x0015, 0x227f,
+    0x0002, 0xf2fe, 0x0044, 0x0076, 0x0002, 0x44ce, 0x00c5, 0xd5ff,
+    0x0002, 0xf1fe, 0x0025, 0x444e, 0x0002, 0x00ae, 0x0055, 0x006f,
+    0x0002, 0xf4fe, 0x0044, 0x445e, 0x0002, 0x10be, 0x0085, 0x11df,
+    0x0002, 0x54de, 0x00f5, 0x111e, 0x0002, 0x0096, 0x0015, 0x515f,
+    0x0003, 0x00f6, 0x0014, 0x111e, 0x0044, 0x888e, 0x00a5, 0xd4df,
+    0x0003, 0xa2ae, 0x0055, 0x76ff, 0x0024, 0x223e, 0x00b6, 0xaaaf,
+    0x0003, 0x00e6, 0x0014, 0xf5ff, 0x0044, 0x0066, 0x0085, 0xcccf,
+    0x0003, 0x009e, 0x00c5, 0x44ef, 0x0024, 0x0036, 0xf8fe, 0x317f,
+    0x0003, 0xe8ee, 0x0014, 0xf1ff, 0x0044, 0x0076, 0x00a5, 0xc4cf,
+    0x0003, 0x227e, 0x0055, 0xd1df, 0x0024, 0x444e, 0xf4fe, 0x515f,
+    0x0003, 0x00d6, 0x0014, 0xe2ef, 0x0044, 0x445e, 0x0085, 0x22bf,
+    0x0003, 0x0096, 0x00c5, 0xc8df, 0x0024, 0x222e, 0xf2fe, 0x226f,
+    0x0003, 0x00f6, 0x0014, 0x111e, 0x0044, 0x888e, 0x00a5, 0xb1bf,
+    0x0003, 0xa2ae, 0x0055, 0x33ff, 0x0024, 0x223e, 0x00b6, 0xa8af,
+    0x0003, 0x00e6, 0x0014, 0xb9ff, 0x0044, 0x0066, 0x0085, 0xa8bf,
+    0x0003, 0x009e, 0x00c5, 0xe4ef, 0x0024, 0x0036, 0xf8fe, 0x646f,
+    0x0003, 0xe8ee, 0x0014, 0xfcff, 0x0044, 0x0076, 0x00a5, 0xc8cf,
+    0x0003, 0x227e, 0x0055, 0xeaef, 0x0024, 0x444e, 0xf4fe, 0x747f,
+    0x0003, 0x00d6, 0x0014, 0xfaff, 0x0044, 0x445e, 0x0085, 0xb2bf,
+    0x0003, 0x0096, 0x00c5, 0x44df, 0x0024, 0x222e, 0xf2fe, 0x313f,
+    0x00f3, 0xfafe, 0xf1fd, 0x0036, 0x0004, 0x32be, 0x0075, 0x11df,
+    0x00f3, 0x54de, 0xf2fd, 0xe4ef, 0x00d5, 0x717e, 0xfcfe, 0x737f,
+    0x00f3, 0xf3fe, 0xf8fd, 0x111e, 0x0004, 0x0096, 0x0055, 0xb1bf,
+    0x00f3, 0x00ce, 0x00b5, 0xd8df, 0xf4fd, 0x0066, 0xb9fe, 0x545f,
+    0x00f3, 0x76fe, 0xf1fd, 0x0026, 0x0004, 0x00a6, 0x0075, 0x009f,
+    0x00f3, 0x00ae, 0xf2fd, 0xf7ff, 0x00d5, 0x0046, 0xf5fe, 0x747f,
+    0x00f3, 0x00e6, 0xf8fd, 0x0016, 0x0004, 0x0086, 0x0055, 0x888f,
+    0x00f3, 0x00c6, 0x00b5, 0xe2ef, 0xf4fd, 0x115e, 0xa8ee, 0x113f,
+    0x00f3, 0xfafe, 0xf1fd, 0x0036, 0x0004, 0x32be, 0x0075, 0xd1df,
+    0x00f3, 0x54de, 0xf2fd, 0xfbff, 0x00d5, 0x717e, 0xfcfe, 0x447f,
+    0x00f3, 0xf3fe, 0xf8fd, 0x111e, 0x0004, 0x0096, 0x0055, 0x727f,
+    0x00f3, 0x00ce, 0x00b5, 0x22ef, 0xf4fd, 0x0066, 0xb9fe, 0x444f,
+    0x00f3, 0x76fe, 0xf1fd, 0x0026, 0x0004, 0x00a6, 0x0075, 0x11bf,
+    0x00f3, 0x00ae, 0xf2fd, 0xffff, 0x00d5, 0x0046, 0xf5fe, 0x323f,
+    0x00f3, 0x00e6, 0xf8fd, 0x0016, 0x0004, 0x0086, 0x0055, 0x006f,
+    0x00f3, 0x00c6, 0x00b5, 0xb8bf, 0xf4fd, 0x115e, 0xa8ee, 0x222f
+};
+
+// the MEL stream: forward, MSB first, from the start of MEL + VLC for
+// Scup - 1 bytes (the last ORed with 0x0F, as it shares its low nibble
+// with the VLC), then 0xFF; after a 0xFF byte the next byte's MSB is
+// stuffed (ORed into the 0xFF's last bit)
+struct HtMel {
+  const uint8_t* p = nullptr;
+  int size = 0;
+  uint64_t tmp = 0;  // bits from the MSB down
+  int bits = 0;
+  bool unstuff = false;
+  int k = 0;
+  void push() {
+    uint64_t d = size > 0 ? *p : 0xff;
+    if (size == 1) d |= 0xf;
+    if (size > 0) p++;
+    size--;
+    int db = 8 - (unstuff ? 1 : 0);
+    tmp |= d << (56 - bits + (unstuff ? 1 : 0));
+    bits += db;
+    unstuff = (d & 0xff) == 0xff;
+  }
+  // OpenJPEG reads the first 1 to 4 bytes one at a time (as many as the
+  // buffer's address leaves to a multiple of 4) and refuses the block
+  // where one of them follows a 0xFF and exceeds 0x8F; the port refuses
+  // it where any address would (the next byte is read even past the
+  // MEL, as OpenJPEG reads it)
+  bool init(const uint8_t* data, int lcup, int scup) {
+    p = data + lcup - scup;
+    size = scup - 1;
+    for (int i = 0; i < 4; i++) {
+      if (unstuff && p[0] > 0x8f) return false;
+      push();
+    }
+    return true;
+  }
+  int run() {  // 2 n + 1: n 0 events then a 1; 2 n: n 0 events
+    static const int EXP[13] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5};
+    while (bits < 6) push();
+    int e = EXP[k];
+    if (tmp >> 63) {
+      tmp <<= 1;
+      bits -= 1;
+      k = std::min(k + 1, 12);
+      return ((1 << e) - 1) << 1;
+    }
+    int r = (int)(tmp >> (63 - e)) & ((1 << e) - 1);
+    tmp <<= e + 1;
+    bits -= e + 1;
+    k = std::max(k - 1, 0);
+    return (r << 1) + 1;
+  }
+};
+
+// a stream read backwards (the VLC, the MagRef), LSB first: a byte after
+// one over 0x8F gives 7 bits where its low 7 bits are all set (its MSB is
+// ORed into the next byte's first bit); 0 past the end
+struct HtRev {
+  const uint8_t* p = nullptr;
+  int size = 0;
+  uint64_t tmp = 0;
+  uint32_t bits = 0;
+  bool unstuff = false;
+  void push(uint64_t d) {
+    uint32_t db = 8 - ((unstuff && (d & 0x7f) == 0x7f) ? 1 : 0);
+    tmp |= d << bits;
+    bits += db;
+    unstuff = d > 0x8f;
+  }
+  void init_vlc(const uint8_t* data, int lcup, int scup) {
+    p = data + lcup - 2;
+    size = scup - 2;
+    uint8_t d = *p--;
+    tmp = d >> 4;
+    bits = 4 - ((tmp & 7) == 7 ? 1 : 0);
+    unstuff = (d | 0xf) > 0x8f;
+  }
+  void init_mrp(const uint8_t* data, int lcup, int len2) {
+    p = data + lcup + len2 - 1;
+    size = len2;
+    unstuff = true;
+  }
+  uint32_t fetch() {
+    while (bits < 32) {
+      uint64_t d = size > 0 ? *p-- : 0;
+      size--;
+      push(d);
+    }
+    return (uint32_t)tmp;
+  }
+  uint32_t advance(uint32_t n) {
+    tmp >>= n;
+    bits -= n;
+    return (uint32_t)tmp;
+  }
+};
+
+// a stream read forwards (MagSgn, padded with 0xFF; SigProp, with 0),
+// LSB first: a byte after 0xFF gives 7 bits
+struct HtFwd {
+  const uint8_t* p = nullptr;
+  int size = 0;
+  uint64_t tmp = 0;
+  uint32_t bits = 0;
+  bool unstuff = false;
+  uint64_t x = 0;
+  void init(const uint8_t* data, int n, uint64_t pad) {
+    p = data;
+    size = n;
+    x = pad;
+  }
+  uint32_t fetch() {
+    while (bits < 32) {
+      uint64_t d = size > 0 ? *p++ : x;
+      size--;
+      tmp |= d << bits;
+      bits += 8 - (unstuff ? 1 : 0);
+      unstuff = (d & 0xff) == 0xff;
+    }
+    return (uint32_t)tmp;
+  }
+  void advance(uint32_t n) {
+    tmp >>= n;
+    bits -= n;
+  }
+};
+
+// u of a quad pair from the UVLC (opj's decode_init_uvlc /
+// decode_noninit_uvlc); returns the bits it takes; u holds u + kappa (1)
+uint32_t ht_uvlc(uint32_t vlc, uint32_t mode, bool initial, uint32_t* u) {
+  // by the 3 next bits: prefix length | suffix length << 2 | prefix << 5
+  static const uint8_t DEC[8] = {
+      3 | (5 << 2) | (5 << 5), 1 | (0 << 2) | (1 << 5), 2 | (0 << 2) | (2 << 5),
+      1 | (0 << 2) | (1 << 5), 3 | (1 << 2) | (3 << 5), 1 | (0 << 2) | (1 << 5),
+      2 | (0 << 2) | (2 << 5), 1 | (0 << 2) | (1 << 5)};
+  uint32_t used = 0;
+  auto suffix = [&](uint32_t d) {
+    uint32_t n = (d >> 2) & 7;
+    uint32_t v = (d >> 5) + (vlc & ((1u << n) - 1));
+    vlc >>= n;
+    used += n;
+    return v;
+  };
+  auto prefix = [&]() {
+    uint32_t d = DEC[vlc & 7];
+    vlc >>= d & 3;
+    used += d & 3;
+    return d;
+  };
+  if (mode == 0) {
+    u[0] = u[1] = 1;
+  } else if (mode <= 2) {
+    uint32_t d = suffix(prefix());
+    u[0] = mode == 1 ? d + 1 : 1;
+    u[1] = mode == 1 ? 1 : d + 1;
+  } else if (mode == 3 && initial) {  // both u_off, the MEL event 0
+    uint32_t d1 = prefix();
+    if ((d1 & 3) > 2) {
+      u[1] = (vlc & 1) + 2;
+      vlc >>= 1;
+      used++;
+      u[0] = suffix(d1) + 1;
+    } else {
+      uint32_t d2 = prefix();
+      u[0] = suffix(d1) + 1;
+      u[1] = suffix(d2) + 1;
+    }
+  } else {  // both u_off: not initial, or initial with the MEL event 1
+    uint32_t d1 = prefix();
+    uint32_t d2 = prefix();
+    uint32_t add = mode == 4 ? 3 : 1;
+    u[0] = suffix(d1) + add;
+    u[1] = suffix(d2) + add;
+  }
+  return used;
+}
+
+inline uint32_t bitlen32(uint32_t v) { return v ? 32 - (uint32_t)__builtin_clz(v) : 0; }
+
+// decodes an HT code-block into t1.data (w x h, two's complement with one
+// fractional bit); fails where OpenJPEG fails
+void decode_ht_cblk(T1& t1, Cblk& cb, uint32_t roishift, uint32_t cblksty) {
+  const uint32_t w = (uint32_t)(cb.x1 - cb.x0), h = (uint32_t)(cb.y1 - cb.y0);
+  t1.w = w;
+  t1.h = h;
+  t1.data.assign((size_t)w * h, 0);
+  if (roishift != 0) fail("We do not support ROI in decoding HT codeblocks");
+  if (cb.Mb == 0 || cb.numsegs == 0) return;
+  const uint32_t zero_bplanes = cb.Mb + 1 - cb.numbps;
+  const uint32_t cblk_len = (uint32_t)cb.data.size();
+  uint32_t num_passes = cb.segs[0].numpasses;
+  num_passes += cb.numsegs > 1 ? cb.segs[1].numpasses : 0;
+  const uint32_t lengths1 = num_passes > 0 ? cb.segs[0].len : 0;
+  uint32_t lengths2 = 0;
+  if (num_passes > 1) lengths2 = cb.segs.size() > 1 ? cb.segs[1].len : 0;
+  if (num_passes > 1 && lengths2 == 0) num_passes = 1;  // a warning
+  if (num_passes > 3)
+    fail("We do not support more than 3 coding passes in an HT codeblock");
+  if (cb.Mb > 30) fail("32 bits are not enough to decode this codeblock");
+  if (zero_bplanes > cb.Mb) fail("Malformed HT codeblock (zero bitplanes)");
+  if (zero_bplanes == cb.Mb && num_passes > 1) num_passes = 1;  // a warning
+  const uint32_t p = cb.numbps;
+  const uint32_t zero_bplanes_p1 = zero_bplanes + 1;
+  if (lengths1 < 2 || lengths1 > cblk_len || lengths1 + lengths2 > cblk_len)
+    fail("Malformed HT codeblock. Invalid codeblock length values.");
+  // the code-block's bytes, with room past their end for the readers
+  std::vector<uint8_t>& buf = cb.data;
+  buf.resize(cblk_len + 8, 0);
+  const uint8_t* coded = buf.data();
+  const int lcup = (int)lengths1;
+  const int scup = ((int)coded[lcup - 1] << 4) + (coded[lcup - 2] & 0xf);
+  if (scup < 2 || scup > lcup || scup > 4079)
+    fail("Malformed HT codeblock. 2 <= Scup <= min(Lcup, 4079) is not met");
+  HtMel mel;
+  if (!mel.init(coded, lcup, scup))
+    fail("Malformed HT codeblock. Incorrect MEL segment sequence.");
+  HtRev vlc;
+  vlc.init_vlc(coded, lcup, scup);
+  HtFwd magsgn;
+  magsgn.init(coded, lcup - scup, 0xff);
+
+  uint32_t* dd = reinterpret_cast<uint32_t*>(t1.data.data());
+  std::vector<uint8_t> sig((size_t)w * h, 0);  // significant after cleanup
+  // per quad column: bit 7 sigma, bits 0-6 the largest E, of the last row
+  // of the quad row above (entry j: columns 2j - 1 and 2j)
+  std::vector<uint8_t> line((size_t)w / 2 + 4, 0);
+  int run = mel.run();
+
+  auto sample = [&](uint32_t qinf, uint32_t i, uint32_t U, uint32_t* s,
+                    uint32_t& vn) {
+    uint32_t ms = magsgn.fetch();
+    uint32_t m_n = U - ((qinf >> (12 + i)) & 1);
+    magsgn.advance(m_n);
+    uint32_t val = ms << 31;
+    uint32_t v = ms & ((1u << m_n) - 1);
+    v |= ((qinf >> (8 + i)) & 1) << m_n;
+    v |= 1;
+    *s = val | ((v + 2) << (p - 1));
+    vn = v;
+  };
+
+  for (uint32_t y = 0; y < h; y += 2) {
+    const bool initial = y == 0;
+    const uint16_t* tbl = initial ? VLC_TBL0 : VLC_TBL1;
+    uint8_t* lsp = line.data();
+    uint32_t ls0 = lsp[0];
+    lsp[0] = 0;
+    uint32_t c_q = 0;
+    for (uint32_t x = 0; x < w; x += 4) {
+      uint32_t qinf[2] = {0, 0};
+      uint32_t vlc_val = vlc.fetch();
+      for (int q = 0; q < 2; q++) {
+        if (q == 1 && x + 2 >= w) break;
+        if (!initial) {
+          if (q == 0) {
+            c_q |= ls0 >> 7;
+            c_q |= (lsp[1] >> 5) & 0x4;
+          } else {
+            c_q |= lsp[1] >> 7;
+            c_q |= (lsp[2] >> 5) & 0x4;
+          }
+        }
+        qinf[q] = tbl[(c_q << 7) | (vlc_val & 0x7f)];
+        if (c_q == 0) {
+          run -= 2;
+          qinf[q] = run == -1 ? qinf[q] : 0;
+          if (run < 0) run = mel.run();
+        }
+        if (initial)
+          c_q = ((qinf[q] & 0x10) >> 4) | ((qinf[q] & 0xe0) >> 5);
+        else
+          c_q = ((qinf[q] & 0x40) >> 5) | ((qinf[q] & 0x80) >> 6);
+        vlc_val = vlc.advance(qinf[q] & 0x7);
+      }
+      uint32_t mode = ((qinf[0] & 0x8) >> 3) | ((qinf[1] & 0x8) >> 2);
+      if (initial && mode == 3) {
+        run -= 2;
+        mode += run == -1 ? 1 : 0;
+        if (run < 0) run = mel.run();
+      }
+      uint32_t U[2];
+      vlc.advance(ht_uvlc(vlc_val, mode, initial, U));
+      if (!initial) {
+        // kappa from the largest E above where the quad has 2+ samples
+        if ((qinf[0] & 0xf0) & ((qinf[0] & 0xf0) - 1)) {
+          uint32_t e = std::max<uint32_t>(ls0 & 0x7f, lsp[1] & 0x7f);
+          U[0] += e > 2 ? e - 2 : 0;
+        }
+        if ((qinf[1] & 0xf0) & ((qinf[1] & 0xf0) - 1)) {
+          uint32_t e = std::max<uint32_t>(lsp[1] & 0x7f, lsp[2] & 0x7f);
+          U[1] += e > 2 ? e - 2 : 0;
+        }
+      }
+      if (U[0] > zero_bplanes_p1 || U[1] > zero_bplanes_p1)
+        fail("Malformed HT codeblock. U_q is larger than zero bitplanes + 1");
+      if (!initial) {
+        ls0 = lsp[2];
+        lsp[1] = lsp[2] = 0;
+      }
+      uint32_t locs = 0xff;
+      if (x + 4 > w) locs >>= (x + 4 - w) << 1;
+      if (y + 2 > h) locs &= 0x55;
+      if ((((qinf[0] & 0xf0) >> 4) | (qinf[1] & 0xf0)) & ~locs)
+        fail("Malformed HT codeblock. VLC code produces significant samples "
+             "outside the codeblock area.");
+      // samples: quad 0 then quad 1, each (x, y), (x, y+1), (x+1, y),
+      // (x+1, y+1)
+      for (int q = 0; q < 2; q++) {
+        for (uint32_t c = 0; c < 2; c++) {
+          uint32_t xx = x + 2 * (uint32_t)q + c;
+          for (uint32_t r = 0; r < 2; r++) {
+            uint32_t i = 2 * c + r;
+            uint32_t bit = 1u << (4 * q + i);
+            if (!(locs & bit)) continue;
+            size_t at = (size_t)(y + r) * w + xx;
+            if (qinf[q] & (0x10u << i)) {
+              uint32_t vn;
+              sample(qinf[q], i, U[q], &dd[at], vn);
+              sig[at] = 1;
+              if (r == 1) {
+                uint32_t e = bitlen32(vn);
+                if (c == 0) {
+                  uint32_t t = lsp[0] & 0x7f;
+                  lsp[0] = (uint8_t)(0x80 | (t > e ? t : e));
+                } else {
+                  lsp[1] = (uint8_t)(0x80 | e);
+                }
+              }
+            } else {
+              dd[at] = 0;
+            }
+          }
+        }
+        lsp++;
+      }
+    }
+  }
+  if (num_passes > 1) {
+    // SigProp: stripes of 4 rows, in groups of 4 columns; in a group the
+    // significance bits of its samples (column by column, row by row),
+    // then the sign bits of those that became significant.  A sample is
+    // visited where it is not significant and one of its 8 neighbours is
+    // (significant after the cleanup, or found so earlier in this pass);
+    // with VSC the row below a stripe does not count
+    const bool causal = (cblksty & CBLKSTY_VSC) != 0;
+    HtFwd sp;
+    sp.init(coded + lengths1, (int)lengths2, 0);
+    std::vector<uint8_t> st(sig);
+    const uint32_t val = 3u << (p - 2);
+    auto is_sig = [&](int64_t xx, int64_t yy) {
+      return xx >= 0 && yy >= 0 && xx < (int64_t)w && yy < (int64_t)h &&
+             st[(size_t)yy * w + (size_t)xx];
+    };
+    std::vector<size_t> fresh;
+    for (uint32_t y0 = 0; y0 < h; y0 += 4) {
+      uint32_t y1 = std::min(y0 + 4, h);
+      for (uint32_t g = 0; g < w; g += 4) {
+        fresh.clear();
+        for (uint32_t x = g; x < std::min(g + 4, w); x++)
+          for (uint32_t y = y0; y < y1; y++) {
+            size_t at = (size_t)y * w + x;
+            if (st[at]) continue;
+            bool south = !(causal && y == y0 + 3);
+            int64_t X = x, Y = y;
+            bool any = is_sig(X - 1, Y - 1) || is_sig(X, Y - 1) ||
+                       is_sig(X + 1, Y - 1) || is_sig(X - 1, Y) ||
+                       is_sig(X + 1, Y) ||
+                       (south && (is_sig(X - 1, Y + 1) || is_sig(X, Y + 1) ||
+                                  is_sig(X + 1, Y + 1)));
+            if (!any) continue;
+            uint32_t b = sp.fetch() & 1;
+            sp.advance(1);
+            if (b) {
+              st[at] = 1;
+              fresh.push_back(at);
+            }
+          }
+        for (size_t at : fresh) {
+          uint32_t s = sp.fetch() & 1;
+          sp.advance(1);
+          dd[at] = (s << 31) | val;
+        }
+      }
+    }
+  }
+  if (num_passes > 2) {
+    // MagRef: the cleanup's significant samples in the same scan
+    HtRev mrp;
+    mrp.init_mrp(coded, (int)lengths1, (int)lengths2);
+    for (uint32_t y0 = 0; y0 < h; y0 += 4) {
+      uint32_t y1 = std::min(y0 + 4, h);
+      for (uint32_t x = 0; x < w; x++)
+        for (uint32_t y = y0; y < y1; y++) {
+          size_t at = (size_t)y * w + x;
+          if (!sig[at]) continue;
+          uint32_t b = mrp.fetch() & 1;
+          mrp.advance(1);
+          dd[at] ^= (1u - b) << (p - 1);
+          dd[at] |= 1u << (p - 2);
+        }
+    }
+  }
+  buf.resize(cblk_len);
+  for (size_t i = 0; i < (size_t)w * h; i++) {
+    int32_t v = (int32_t)(dd[i] & 0x7fffffff);
+    t1.data[i] = (dd[i] & 0x80000000u) ? -v : v;
+  }
+}
+
 // --------------------------------------------------------------- wavelets
 
 // 5/3 inverse in place on a row `a` (sn lows, then dn highs), cas =
@@ -853,12 +1569,12 @@ void vert97(float* a, size_t w, int32_t rw, int32_t sn, int32_t dn, int cas,
     std::memcpy(a + (size_t)k * w, wv + (size_t)k * rw, sizeof(float) * rw);
 }
 
+// the inverse DWT of resolutions 1 to `top`
 template <typename T, typename F, typename V>
-void idwt2d(TileComp& tc, T* data, F f1d, V vert) {
-  if (tc.numres <= 1) return;
+void idwt2d(TileComp& tc, T* data, uint32_t top, F f1d, V vert) {
   size_t w = (size_t)(tc.x1 - tc.x0);
   std::vector<T> tmp;
-  for (uint32_t r = 1; r < tc.numres; r++) {
+  for (uint32_t r = 1; r <= top; r++) {
     const Res& lo = tc.res[r - 1];
     const Res& re = tc.res[r];
     int32_t rw = re.x1 - re.x0, rh = re.y1 - re.y0;
@@ -1182,6 +1898,149 @@ struct Decoder {
     tcp.ppt_markers[z].assign(p, p + size - 1);
   }
 
+  // ---------------------------------------------------------- Part 2
+  // OpenJPEG 2.5.3's opj_j2k_read_mct / _mcc / _mco / _cbd: what it does
+  // not take in charge it skips with a warning (the marker is then read);
+  // MCO zeroes every DC level shift and takes an MCC collection's offset
+  // array as the shifts; CBD sets the components' precision and sign.
+  // COD's MCT byte 2 (the array transform) is refused by read_cod, so the
+  // decorrelation array is only checked, never applied.
+
+  void read_mct(TCP& tcp, const uint8_t* p, uint32_t size) {
+    if (size < 2) fail("Error reading MCT marker");
+    if (rd(p, 2) != 0) return;  // "mct data within multiple MCT records"
+    if (size <= 6) fail("Error reading MCT marker");
+    uint32_t t = rd(p, 2);  // Imct
+    uint32_t index = t & 0xff;
+    size_t i = 0;
+    while (i < tcp.mcts.size() && tcp.mcts[i].index != index) i++;
+    if (i == tcp.mcts.size()) tcp.mcts.emplace_back();
+    MctRecord& r = tcp.mcts[i];
+    r.data.clear();
+    r.index = index;
+    r.element_type = (t >> 10) & 3;
+    if (rd(p, 2) != 0) return;  // Ymct: "multiple MCT markers"
+    r.data.assign(p, p + (size - 6));
+  }
+
+  int find_mct(const TCP& tcp, uint32_t index) {
+    for (size_t j = 0; j < tcp.mcts.size(); j++)
+      if (tcp.mcts[j].index == index) return (int)j;
+    return -1;
+  }
+
+  void read_mcc(TCP& tcp, const uint8_t* p, uint32_t size) {
+    if (size < 2) fail("Error reading MCC marker");
+    if (rd(p, 2) != 0) return;  // Zmcc: "multiple data spanning"
+    if (size < 7) fail("Error reading MCC marker");
+    uint32_t index = rd(p, 1);
+    uint32_t i = 0;
+    while (i < tcp.nb_mcc && tcp.mccs[i].index != index) i++;
+    bool fresh = i == tcp.nb_mcc;
+    if (tcp.mccs.size() <= tcp.nb_mcc) tcp.mccs.resize(tcp.nb_mcc + 1);
+    MccRecord& r = tcp.mccs[i];
+    r.index = index;
+    if (rd(p, 2) != 0) return;  // Ymcc: "multiple data spanning"
+    uint32_t ncoll = rd(p, 2);  // Qmcc
+    if (ncoll > 1) return;      // "multiple collections"
+    size -= 7;
+    for (uint32_t c = 0; c < ncoll; c++) {
+      if (size < 3) fail("Error reading MCC marker");
+      if (rd(p, 1) != 1) return;  // "other than array decorrelation"
+      uint32_t n = rd(p, 2);
+      size -= 3;
+      uint32_t nb = 1 + (n >> 15);
+      r.nb_comps = n & 0x7fff;
+      if (size < nb * r.nb_comps + 2) fail("Error reading MCC marker");
+      size -= nb * r.nb_comps + 2;
+      for (uint32_t j = 0; j < r.nb_comps; j++)
+        if (rd(p, (int)nb) != j) return;  // "indix shuffle"
+      n = rd(p, 2);
+      nb = 1 + (n >> 15);
+      if ((n & 0x7fff) != r.nb_comps) return;  // "same number of indixes"
+      if (size < nb * r.nb_comps + 3) fail("Error reading MCC marker");
+      size -= nb * r.nb_comps + 3;
+      for (uint32_t j = 0; j < r.nb_comps; j++)
+        if (rd(p, (int)nb) != j) return;  // "indix shuffle"
+      uint32_t t = rd(p, 3);
+      r.deco = r.offset = -1;
+      if ((t & 0xff) != 0) {
+        r.deco = find_mct(tcp, t & 0xff);
+        if (r.deco < 0) fail("Error reading MCC marker");
+      }
+      if (((t >> 8) & 0xff) != 0) {
+        r.offset = find_mct(tcp, (t >> 8) & 0xff);
+        if (r.offset < 0) fail("Error reading MCC marker");
+      }
+    }
+    if (size != 0) fail("Error reading MCC marker");
+    if (fresh) tcp.nb_mcc++;
+  }
+
+  // an MCT record's element k as opj_j2k_read_*_to_int32 reads it (the
+  // integers unsigned)
+  static int32_t mct_int(const MctRecord& r, size_t k) {
+    const uint8_t* q = r.data.data() + k * MCT_ELEMENT_SIZE[r.element_type];
+    switch (r.element_type) {
+      case 0: return (int32_t)((uint32_t)q[0] << 8 | q[1]);
+      case 1: return (int32_t)((uint32_t)q[0] << 24 | (uint32_t)q[1] << 16 |
+                               (uint32_t)q[2] << 8 | q[3]);
+      case 2: {
+        uint32_t b = (uint32_t)q[0] << 24 | (uint32_t)q[1] << 16 |
+                     (uint32_t)q[2] << 8 | q[3];
+        float f;
+        std::memcpy(&f, &b, 4);
+        return (int32_t)f;
+      }
+      default: {
+        uint64_t b = 0;
+        for (int j = 0; j < 8; j++) b = b << 8 | q[j];
+        double f;
+        std::memcpy(&f, &b, 8);
+        return (int32_t)f;
+      }
+    }
+  }
+
+  // opj_j2k_add_mct, whose search never moves past the first MCC record
+  void add_mct(TCP& tcp, uint32_t index) {
+    if (tcp.nb_mcc == 0 || tcp.mccs[0].index != index) return;
+    const MccRecord& r = tcp.mccs[0];
+    uint32_t nc = numcomps();
+    if (r.nb_comps != nc) return;
+    if (r.deco >= 0) {
+      const MctRecord& m = tcp.mcts[(size_t)r.deco];
+      if (m.data.size() != (size_t)MCT_ELEMENT_SIZE[m.element_type] * nc * nc)
+        fail("MCT decorrelation array of a wrong size");
+    }
+    if (r.offset >= 0) {
+      const MctRecord& m = tcp.mcts[(size_t)r.offset];
+      if (m.data.size() != (size_t)MCT_ELEMENT_SIZE[m.element_type] * nc)
+        fail("MCT offset array of a wrong size");
+      for (uint32_t c = 0; c < nc; c++) tcp.tccps[c].dc_shift = mct_int(m, c);
+    }
+  }
+
+  void read_mco(TCP& tcp, const uint8_t* p, uint32_t size) {
+    if (size < 1) fail("Error reading MCO marker");
+    uint32_t nstages = rd(p, 1);
+    if (nstages > 1) return;  // "multiple transformation stages"
+    if (size != nstages + 1) fail("Error reading MCO marker");
+    for (auto& tc : tcp.tccps) tc.dc_shift = 0;
+    for (uint32_t i = 0; i < nstages; i++) add_mct(tcp, rd(p, 1));
+  }
+
+  void read_cbd(const uint8_t* p, uint32_t size) {
+    if (size != numcomps() + 2) fail("Crror reading CBD marker");
+    if (rd(p, 2) != numcomps()) fail("Crror reading CBD marker");
+    for (auto& c : comps) {
+      uint32_t t = rd(p, 1);
+      c.sgnd = t >> 7;
+      c.prec = (t & 0x7f) + 1;
+      if (c.prec > 31) fail("Invalid values for comp: prec");
+    }
+  }
+
   // OpenJPEG 2.5 reads TLM and PLM leniently: only their sizes
   void read_tlm(uint32_t size) {
     if (size < 2) fail("Error reading TLM marker");
@@ -1274,11 +2133,12 @@ struct Decoder {
         if (size != numcomps() * 4) fail("Error reading CRG marker");
         break;
       case 0xff64: break;  // COM
-      case 0xff50:
-        throw NotYet{"HTJ2K (the CAP marker)"};
+      case 0xff50: break;  // CAP: OpenJPEG reads nothing of it
       case 0xff59: break;  // CPF
-      case 0xff74: case 0xff75: case 0xff77: case 0xff78:
-        throw NotYet{"JPEG 2000 Part 2 (MCT/MCC/MCO/CBD markers)"};
+      case 0xff74: read_mct(tcp, p, size); break;
+      case 0xff75: read_mcc(tcp, p, size); break;
+      case 0xff77: read_mco(tcp, p, size); break;
+      case 0xff78: read_cbd(p, size); break;
       default: break;
     }
   }
@@ -1315,10 +2175,6 @@ struct Decoder {
     if (!has_cod) fail("required COD marker not found in main header");
     if (!has_qcd) fail("required QCD marker not found in main header");
     merge_ppm();
-    for (uint32_t c = 0; c < numcomps(); c++)
-      if (def.tccps[c].cblksty & CBLKSTY_HT)
-        throw NotYet{"HTJ2K (code-block style 0x40)"};
-    if (rsiz & 0x8000) throw NotYet{"JPEG 2000 Part 2 (Rsiz bit 15)"};
     tcps.assign((size_t)tw * th, def);
   }
 
@@ -1428,9 +2284,6 @@ struct Decoder {
       tcp.has_data = true;
       pos += n;
       state = TPHSOT;
-      for (uint32_t c = 0; c < numcomps(); c++)
-        if (tcp.tccps[c].cblksty & CBLKSTY_HT)
-          throw NotYet{"HTJ2K (code-block style 0x40)"};
       if (can_decode) {
         can_decode = false;
         order.push_back(cur);
@@ -1586,6 +2439,9 @@ struct Decoder {
     if (cb.segs.size() <= index) cb.segs.resize(index + 1);
     Seg& s = cb.segs[index];
     s = Seg();
+    // no HT branch, as in OpenJPEG 2.5.3: an HT code-block's first
+    // segment can take 109 passes, so that a pass in a later layer joins
+    // the cleanup segment (cv2 then refuses the block, or misreads it)
     if (sty & CBLKSTY_TERMALL)
       s.maxpasses = 1;
     else if (sty & CBLKSTY_LAZY) {
@@ -1657,6 +2513,7 @@ struct Decoder {
           if (!cb.numsegs) {
             uint32_t i = 0;
             while (!pr.imsb.decode(bio, k, (int32_t)i)) ++i;
+            cb.Mb = (uint32_t)bd.numbps;
             cb.numbps = (uint32_t)bd.numbps + 1 - i;
             cb.numlenbits = 3;
           }
@@ -1691,10 +2548,14 @@ struct Decoder {
             }
           }
           int32_t n = (int32_t)np;
+          const bool ht = (sty & CBLKSTY_HT) != 0;
           do {
             Seg& s = cb.segs[segno];
-            s.numnewpasses = (uint32_t)std::min<int64_t>(
-                (int64_t)s.maxpasses - s.numpasses, n);
+            // HT: the first segment takes one pass (the cleanup), a later
+            // one all that are left
+            s.numnewpasses = ht ? (segno == 0 ? 1 : (uint32_t)n)
+                                : (uint32_t)std::min<int64_t>(
+                                      (int64_t)s.maxpasses - s.numpasses, n);
             uint32_t bits = cb.numlenbits + floorlog2(s.numnewpasses);
             if (bits > 32) fail("Invalid bit number in packet header");
             s.newlen = bio.read((int)bits);
@@ -1851,16 +2712,17 @@ struct Decoder {
           if (r >= tiles[c].numres) return;
           const Res& re = tiles[c].res[r];
           uint32_t levelno = tiles[c].numres - 1 - r;
-          if (levelno >= 32)
-            throw NotYet{"32 decomposition levels under a position-driven "
-                         "progression"};
-          if (((ic.dx << levelno) >> levelno) != ic.dx ||
-              ((ic.dy << levelno) >> levelno) != ic.dy)
-            return;
-          uint32_t trx0 = ceildiv(ttx0, ic.dx << levelno);
-          uint32_t try0 = ceildiv(tty0, ic.dy << levelno);
-          uint32_t trx1 = ceildiv(ttx1, ic.dx << levelno);
-          uint32_t try1 = ceildiv(tty1, ic.dy << levelno);
+          // OpenJPEG shifts the 32-bit dx and dy left by levelno, which C
+          // leaves undefined at 32 levels; cv2's x86-64 build shifts by
+          // the count mod 32 (SHL), so 32 levels shift by 0 here.  The
+          // 64-bit shifts below are defined and taken whole.
+          uint32_t sh = levelno & 31;
+          uint32_t ddx = ic.dx << sh, ddy = ic.dy << sh;
+          if ((ddx >> sh) != ic.dx || (ddy >> sh) != ic.dy) return;
+          uint32_t trx0 = ceildiv(ttx0, ddx);
+          uint32_t try0 = ceildiv(tty0, ddy);
+          uint32_t trx1 = ceildiv(ttx1, ddx);
+          uint32_t try1 = ceildiv(tty1, ddy);
           // 64-bit: OpenJPEG 2.5 tests these positions past 2^31 too
           uint32_t rpx = re.pdx + levelno, rpy = re.pdy + levelno;
           if (!(((uint64_t)y % ((uint64_t)ic.dy << rpy) == 0) ||
@@ -1871,8 +2733,8 @@ struct Decoder {
             return;
           if (re.pw == 0 || re.ph == 0) return;
           if (trx0 == trx1 || try0 == try1) return;
-          uint32_t prci = (ceildiv(x, ic.dx << levelno) >> re.pdx) - (trx0 >> re.pdx);
-          uint32_t prcj = (ceildiv(y, ic.dy << levelno) >> re.pdy) - (try0 >> re.pdy);
+          uint32_t prci = (ceildiv(x, ddx) >> re.pdx) - (trx0 >> re.pdx);
+          uint32_t prcj = (ceildiv(y, ddy) >> re.pdy) - (try0 >> re.pdy);
           uint32_t precno = prci + prcj * re.pw;
           for (uint32_t l = l0; l < l1; l++) emit(l, r, c, precno);
         };
@@ -1936,12 +2798,12 @@ struct Decoder {
       ic.resno_decoded = std::max(ic.resno_decoded, pi.resno);
     }
     // OpenJPEG stops the inverse DWT at the highest resolution that had
-    // a packet (in any tile so far); only POCs that skip a component's
-    // top resolution do that
+    // a packet in any tile so far (a POC can leave a component's top
+    // resolutions without one): that resolution's samples fill the top
+    // left of the tile buffer, whose other samples stay 0
+    std::vector<uint32_t> rdec(numcomps());
     for (uint32_t c = 0; c < numcomps(); c++)
-      if (comps[c].resno_decoded + 1 < tiles[c].numres)
-        throw NotYet{"a POC that gives a component's top resolution no "
-                     "packet"};
+      rdec[c] = std::min(comps[c].resno_decoded, tiles[c].numres - 1);
     // tier 1 and dequantisation
     T1 t1;
     for (uint32_t c = 0; c < numcomps(); c++) {
@@ -1956,8 +2818,12 @@ struct Decoder {
           for (Precinct& pr : bd.precs)
             for (Cblk& cb : pr.cblks) {
               if (cb.x1 <= cb.x0 || cb.y1 <= cb.y0) continue;
-              if (!decode_cblk(t1, cb, bd.bandno, cp.roishift, cp.cblksty))
+              if (cp.cblksty & CBLKSTY_HT) {
+                decode_ht_cblk(t1, cb, cp.roishift, cp.cblksty);
+              } else if (!decode_cblk(t1, cb, bd.bandno, cp.roishift,
+                                      cp.cblksty)) {
                 fail("opj_t1_decode_cblk(): unsupported bpno_plus_one");
+              }
               uint32_t w = (uint32_t)(cb.x1 - cb.x0), h = (uint32_t)(cb.y1 - cb.y0);
               int32_t* d = t1.data.data();
               if (cp.roishift) {
@@ -1994,15 +2860,17 @@ struct Decoder {
         }
       }
       if (cp.qmfbid == 1)
-        idwt2d(tc, tc.idata.data(), idwt53, vert53);
+        idwt2d(tc, tc.idata.data(), rdec[c], idwt53, vert53);
       else
-        idwt2d(tc, tc.fdata.data(), idwt97, vert97);
+        idwt2d(tc, tc.fdata.data(), rdec[c], idwt97, vert97);
     }
-    // multiple component transform
+    // multiple component transform, on the whole tile buffers
     if (tcp.mct) {
       if (numcomps() >= 3) {
         if (tiles[0].numres != tiles[1].numres ||
             tiles[0].numres != tiles[2].numres)
+          fail("Tiles don't all have the same dimension. Skip the MCT step.");
+        if (rdec[0] != rdec[1] || rdec[0] != rdec[2])
           fail("Tiles don't all have the same dimension. Skip the MCT step.");
         for (int c = 1; c < 3; c++)
           if ((int64_t)(tiles[c].x1 - tiles[c].x0) * (tiles[c].y1 - tiles[c].y0) !=
@@ -2041,11 +2909,15 @@ struct Decoder {
         }
       }
     }
-    // DC level shift, clamp, and into the image
+    // DC level shift and clamp on the decoded resolution, and into the
+    // image: a lone tile's whole buffer (OpenJPEG hands it over), else the
+    // decoded resolution at its place on the reduced grid
+    bool lone = tw * th == 1;
     for (uint32_t c = 0; c < numcomps(); c++) {
       TileComp& tc = tiles[c];
       Comp& ic = comps[c];
       const TCCP& cp = tcp.tccps[c];
+      const Res& rr = tc.res[rdec[c]];
       int32_t lmin, lmax;
       if (ic.sgnd) {
         lmin = -(int32_t)(1u << (ic.prec - 1));
@@ -2055,18 +2927,19 @@ struct Decoder {
         lmax = (int32_t)((1u << ic.prec) - 1);
       }
       size_t w = (size_t)(tc.x1 - tc.x0), h = (size_t)(tc.y1 - tc.y0);
-      int32_t ox = tc.x0 - (int32_t)ic.x0, oy = tc.y0 - (int32_t)ic.y0;
-      for (size_t j = 0; j < h; j++) {
-        int32_t* dst = ic.data.data() + (size_t)(oy + j) * ic.w + ox;
+      size_t rw = (size_t)(rr.x1 - rr.x0), rh = (size_t)(rr.y1 - rr.y0);
+      std::vector<int32_t> out(w * h, 0);
+      for (size_t j = 0; j < rh; j++) {
+        int32_t* dst = out.data() + j * w;
         if (cp.qmfbid == 1) {
           const int32_t* s = tc.idata.data() + j * w;
-          for (size_t i = 0; i < w; i++) {
+          for (size_t i = 0; i < rw; i++) {
             int32_t v = (int32_t)((uint32_t)s[i] + (uint32_t)cp.dc_shift);
             dst[i] = v < lmin ? lmin : v > lmax ? lmax : v;
           }
         } else {
           const float* s = tc.fdata.data() + j * w;
-          for (size_t i = 0; i < w; i++) {
+          for (size_t i = 0; i < rw; i++) {
             float v = s[i];
             if (v > (float)INT32_MAX)
               dst[i] = lmax;
@@ -2079,6 +2952,20 @@ struct Decoder {
           }
         }
       }
+      if (lone && (size_t)ic.w == w && (size_t)ic.h == h) {
+        ic.data.swap(out);
+        continue;
+      }
+      // opj_j2k_update_image_data: the region [rr.x0, rr.x1) clipped to
+      // the component
+      int64_t dx0 = ic.x0, dx1 = (int64_t)ic.x0 + ic.w;
+      int64_t dy0 = ic.y0, dy1 = (int64_t)ic.y0 + ic.h;
+      int64_t cx0 = std::max<int64_t>(rr.x0, dx0), cx1 = std::min<int64_t>(rr.x1, dx1);
+      int64_t cy0 = std::max<int64_t>(rr.y0, dy0), cy1 = std::min<int64_t>(rr.y1, dy1);
+      for (int64_t y = cy0; y < cy1; y++)
+        for (int64_t x = cx0; x < cx1; x++)
+          ic.data[(size_t)(y - dy0) * ic.w + (size_t)(x - dx0)] =
+              out[(size_t)(y - rr.y0) * w + (size_t)(x - rr.x0)];
     }
   }
 
@@ -2099,7 +2986,7 @@ extern "C" {
 
 // Decodes a JPEG 2000 codestream (`ihdr_w`/`ihdr_h`: the JP2 ihdr box's
 // size, or 0 for a raw codestream).  Returns a handle, or NULL with the
-// cause in `err`; `*code` is 0, 1 (refused) or 2 (not yet read).
+// cause in `err`; `*code` is 0, or 1 where it is refused.
 void* mn_j2k_decode(const uint8_t* buf, size_t len, uint32_t ihdr_w,
                     uint32_t ihdr_h, int* code, char* err, int errlen) {
   Decoder* d = new Decoder();
@@ -2114,9 +3001,6 @@ void* mn_j2k_decode(const uint8_t* buf, size_t len, uint32_t ihdr_w,
   } catch (const Fail& f) {
     std::snprintf(err, (size_t)errlen, "%s", f.msg.c_str());
     *code = 1;
-  } catch (const NotYet& f) {
-    std::snprintf(err, (size_t)errlen, "%s", f.msg.c_str());
-    *code = NOT_YET;
   } catch (const std::bad_alloc&) {
     std::snprintf(err, (size_t)errlen, "out of memory");
     *code = 1;

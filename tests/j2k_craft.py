@@ -18,11 +18,18 @@ that writes what neither cv2 nor Pillow writes:
   (`bands=`), so that one non-zero coefficient per band and level pins
   the decoder's lifting constants;
 - components of any precision (1-16 bits here), signed or not, each
-  with its own subsampling; RGN max-shift.
+  with its own subsampling; RGN max-shift;
+- HT code-blocks (T.814, `cblksty=HT`): the cleanup pass (MEL, VLC with
+  codewords taken from the decoder's own tables in
+  `mergenet_tpu_torch/data/native/jp2.cc`, UVLC, MagSgn) and the
+  SigProp and MagRef passes, each stream stuffed as the decoder
+  unstuffs it; the 9/7 DWT and ICT of whole images for lossy files.
 
 Pure Python and numpy; the tests and `tests/make_jp2_fixtures.py` use
 it, the port never does."""
 
+import os
+import re
 import struct
 
 import numpy as np
@@ -625,6 +632,57 @@ def fwd53(a, x0, y0, levels):
     return a
 
 
+_A, _B, _G, _D, _K = (-1.586134342, -0.052980118, 0.882911075, 0.443506852,
+                      1.230174105)
+
+
+def _fwd97_1d(x, cas):
+    """Forward 9/7 (float lifting) of one signal whose first sample has
+    parity `cas`: its lows (times 1/K), then its highs (times K/2)."""
+    n = len(x)
+    x = x.astype(np.float64).copy()
+    if n == 1:
+        return x * 2 if cas else x
+
+    for c, par in ((_A, 1 - cas), (_B, cas), (_G, 1 - cas), (_D, cas)):
+        k = np.arange(par, n, 2)
+        right = np.where(k + 1 >= n, 2 * (n - 1) - (k + 1), k + 1)
+        x[k] += c * (x[np.abs(k - 1)] + x[right])
+    return np.concatenate([x[cas::2] / _K, x[1 - cas::2] * _K / 2])
+
+
+def fwd97(a, x0, y0, levels):
+    """Forward 9/7 of a tile-component, in the layout of fwd53."""
+    a = a.astype(np.float64).copy()
+    H, W = a.shape
+    for lv in range(levels):
+        rx0, rx1 = _cdivpow2(x0, lv), _cdivpow2(x0 + W, lv)
+        ry0, ry1 = _cdivpow2(y0, lv), _cdivpow2(y0 + H, lv)
+        h, w = ry1 - ry0, rx1 - rx0
+        for i in range(w):
+            a[:h, i] = _fwd97_1d(a[:h, i], ry0 % 2)
+        for j in range(h):
+            a[j, :w] = _fwd97_1d(a[j, :w], rx0 % 2)
+    return a
+
+
+def _quantise97(a, g, prec, quant):
+    """Dead-zone quantisation of each band by its QCD step (the
+    decoder's step: (1 + mant / 2048) * 2^(prec + gain - expn))."""
+    expn, mants = quant
+    out = np.zeros(a.shape, np.int64)
+    for r, re_ in enumerate(g.res):
+        for bi, bd in enumerate(re_["bands"]):
+            ox, oy = g.band_offset(r, bd["bandno"])
+            sl = (slice(oy, oy + bd["y1"] - bd["y0"]),
+                  slice(ox, ox + bd["x1"] - bd["x0"]))
+            i = 0 if r == 0 else 3 * r - 2 + bi
+            step = (1 + mants[i] / 2048.0) * 2.0 ** (prec - expn[i])
+            v = a[sl]
+            out[sl] = np.sign(v) * np.floor(np.abs(v) / step)
+    return out
+
+
 # ------------------------------------------------------------------ encoder
 
 
@@ -812,7 +870,8 @@ def encode(comps, prec=8, signed=False, sub=None, levels=2, reversible=True,
            precincts=None, tile=None, tile_origin=(0, 0), origin=(0, 0),
            roi=None, bands=None, quant=(8, 0), guard=2, sop=False, eph=False,
            packed=None, tileparts=1, tile_order=None, pocs=None,
-           poc_in_tile=False, tnsot=True, comment=None, rsiz=0):
+           poc_in_tile=False, tnsot=True, comment=None, rsiz=0, ht_passes=1,
+           ht_extra=0, tile_markers=()):
     """A J2K codestream of the components `comps` (2-D int arrays, each
     the size its subsampling `sub[c]` = (dx, dy) gives on the image grid
     from `origin`).
@@ -827,7 +886,13 @@ def encode(comps, prec=8, signed=False, sub=None, levels=2, reversible=True,
     "ppt"; `tileparts`: tile-parts per tile; `tile_order`: [(tile,
     part)] in the order they are written; `pocs`: [(RSpoc, CSpoc,
     LYEpoc, REpoc, CEpoc, Ppoc)] in the main header (or each tile's
-    first tile-part with `poc_in_tile`); `tnsot`: write TNsot (else 0)."""
+    first tile-part with `poc_in_tile`); `tnsot`: write TNsot (else 0);
+    `cblksty`: one for all or one per component (COC markers after the
+    COD); with 0x40 (HT) the code-blocks are HT coded in `ht_passes`
+    (1-3) passes, `ht_extra` more announced in the packet headers;
+    `tile_markers`: [(marker, payload)] in each tile's first tile-part.
+    Irreversible files without `bands` take the 9/7 DWT of the
+    components (after the ICT with `mct`) quantised by `quant`."""
     nc = len(comps)
     sub = sub or [(1, 1)] * nc
     precs = list(prec) if isinstance(prec, (list, tuple)) else [prec] * nc
@@ -857,13 +922,19 @@ def encode(comps, prec=8, signed=False, sub=None, levels=2, reversible=True,
         siz += bytes([(precs[k] - 1) | (0x80 if sgnd[k] else 0), sub[k][0],
                       sub[k][1]])
     out.append((0xff51, siz))
+    stys = list(cblksty) if isinstance(cblksty, (list, tuple)) else \
+        [cblksty] * nc
     scod = (1 if precincts else 0) | (2 if sop else 0) | (4 if eph else 0)
-    cod = bytes([scod, prg]) + struct.pack(">H", layers) + bytes(
-        [1 if mct else 0, levels, cblk[0] - 2, cblk[1] - 2, cblksty,
-         1 if reversible else 0])
-    if precincts:
-        cod += bytes((py << 4) | px for px, py in precincts)
-    out.append((0xff52, cod))
+    spcod = [bytes([levels, cblk[0] - 2, cblk[1] - 2, sty,
+                    1 if reversible else 0]) + (bytes(
+                        (py << 4) | px for px, py in precincts)
+                        if precincts else b"") for sty in stys]
+    out.append((0xff52, bytes([scod, prg]) + struct.pack(">H", layers)
+                + bytes([1 if mct else 0]) + spcod[0]))
+    for k in range(1, nc):
+        if stys[k] != stys[0]:
+            out.append((0xff53, k.to_bytes(1 if nc <= 256 else 2, "big")
+                        + bytes([scod & 1]) + spcod[k]))
     if reversible:
         qcd = bytes([guard << 5]) + bytes(e << 3 for e in expn)
     else:
@@ -884,8 +955,9 @@ def encode(comps, prec=8, signed=False, sub=None, levels=2, reversible=True,
                   min(TX0 + (tx + 1) * TW, X1), min(TY0 + (ty + 1) * TH, Y1))
             tiles_parts[ty * ntx + tx] = _encode_tile(
                 comps, sub, precs, sgnd, tb, (X0, Y0), levels, reversible,
-                mct, cblk, cblksty, prg, layers, precincts, roi, bands, mb,
-                sop, eph, tileparts, pocs)
+                mct, cblk, stys, prg, layers, precincts, roi, bands, mb,
+                sop, eph, tileparts, pocs, (ht_passes, ht_extra),
+                (expn, mants))
     order = tile_order or [(t, q) for t in sorted(tiles_parts)
                            for q in range(len(tiles_parts[t]))]
     if packed == "ppm":
@@ -902,6 +974,8 @@ def encode(comps, prec=8, signed=False, sub=None, levels=2, reversible=True,
         markers = b""
         if q == 0 and pocs and poc_in_tile:
             markers += marker(0xff5f, _poc(pocs, nc))
+        if q == 0:
+            markers += b"".join(marker(m, p) for m, p in tile_markers)
         if packed == "ppt":
             hdr = b"".join(h for _, h, _ in pk)
             for i in range(0, max(len(hdr), 1), 60000):
@@ -937,8 +1011,8 @@ def _poc(pocs, nc):
 
 
 def _encode_tile(comps, sub, precs, sgnd, tb, org, levels, reversible, mct,
-                 cblk, cblksty, prg, layers, precincts, roi, bands, mb, sop,
-                 eph, tileparts, pocs):
+                 cblk, stys, prg, layers, precincts, roi, bands, mb, sop,
+                 eph, tileparts, pocs, ht=(1, 0), quant=None):
     """The tile's tile-parts, each a list of packets (SOP, header with
     its EPH, body)."""
     nc = len(comps)
@@ -956,11 +1030,20 @@ def _encode_tile(comps, sub, precs, sgnd, tb, org, levels, reversible, mct,
     if mct and reversible:
         r, g_, b = data[0], data[1], data[2]
         data[0], data[1], data[2] = (r + 2 * g_ + b) >> 2, b - g_, r - g_
+    if mct and not reversible and not bands:
+        r, g_, b = (d.astype(np.float64) for d in data[:3])
+        data[:3] = [0.299 * r + 0.587 * g_ + 0.114 * b,
+                    -0.16875 * r - 0.33126 * g_ + 0.5 * b,
+                    0.5 * r - 0.41869 * g_ - 0.08131 * b]
     coefs = []
     for k in range(nc):
         g = geo[k]
         if reversible:
             coefs.append(fwd53(data[k], g.x0, g.y0, levels))
+            continue
+        if not bands:
+            coefs.append(_quantise97(fwd97(data[k], g.x0, g.y0, levels), g,
+                                     precs[k], quant))
             continue
         arr = np.zeros(data[k].shape, np.int64)
         for r, re in enumerate(g.res):
@@ -1004,9 +1087,16 @@ def _encode_tile(comps, sub, precs, sgnd, tb, org, levels, reversible, mct,
                             continue
                         c = coefs[k][oy + y0 - bd["y0"]:oy + y1 - bd["y0"],
                                      ox + x0 - bd["x0"]:ox + x1 - bd["x0"]]
-                        segs, nbps = encode_cblk(c, bd["bandno"], cblksty,
-                                                 nbps=s if c.any() else 0,
-                                                 roishift=s)
+                        if stys[k] & HT:
+                            segs, nbps = encode_ht_cblk(
+                                c, ht[0], bool(stys[k] & VSC)) if c.any() \
+                                else ([], 0)
+                            if segs and ht[1]:
+                                segs[-1] = (segs[-1][0], segs[-1][1] + ht[1])
+                        else:
+                            segs, nbps = encode_cblk(
+                                c, bd["bandno"], stys[k],
+                                nbps=s if c.any() else 0, roishift=s)
                         zbp = bmb + s - nbps
                         if segs and zbp < 0:
                             raise ValueError("coefficients past the band's "
@@ -1127,3 +1217,332 @@ def _pieces(segs, done, npass):
             out.append((hi - lo, data[lo:hi], b - a))
         start += n
     return out
+
+
+# ------------------------------------------------------------------ HTJ2K
+
+HT = 0x40
+_JP2_CC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "mergenet_tpu_torch", "data", "native", "jp2.cc")
+
+
+def vlc_tables():
+    """The decoder's two context VLC tables (`native/jp2.cc`'s VLC_TBL0
+    and VLC_TBL1: OpenJPEG's, read out of cv2), as two lists of 1024."""
+    with open(_JP2_CC) as f:
+        src = f.read()
+    out = []
+    for name in ("VLC_TBL0", "VLC_TBL1"):
+        body = re.search(name + r"\[1024\] = \{([^}]*)\}", src).group(1)
+        out.append([int(v, 16) for v in re.findall(r"0x[0-9a-f]+", body)])
+        assert len(out[-1]) == 1024, name
+    return out
+
+
+def _vlc_encoders():
+    """Per table and context, {(rho, u_off, e_k, e_1): (codeword, length)}
+    with the shortest codeword of each, from the decoding tables."""
+    encs = []
+    for tbl in vlc_tables():
+        per = []
+        for c in range(8):
+            d = {}
+            for idx in range(128):
+                e = tbl[(c << 7) | idx]
+                n = e & 7
+                key = ((e >> 4) & 15, (e >> 3) & 1, (e >> 12) & 15,
+                       (e >> 8) & 15)
+                cwd = idx & ((1 << n) - 1)
+                if key not in d or d[key][1] > n:
+                    d[key] = (cwd, n)
+            per.append(d)
+        encs.append(per)
+    return encs
+
+
+_VLC_ENC = []
+
+
+class _MelWriter:
+    """MEL events (T.814's adaptive run-length code), bits MSB first, 7
+    bits after a 0xFF byte."""
+    EXP = (0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5)
+
+    def __init__(self):
+        self.k, self.run = 0, 0
+        self.out, self.tmp, self.rem = bytearray(), 0, 8
+
+    def _bit(self, v):
+        self.tmp = (self.tmp << 1) | v
+        self.rem -= 1
+        if self.rem == 0:
+            self.out.append(self.tmp)
+            self.rem = 7 if self.tmp == 0xff else 8
+            self.tmp = 0
+
+    def event(self, e):
+        if not e:
+            self.run += 1
+            if self.run == 1 << self.EXP[self.k]:
+                self._bit(1)
+                self.run = 0
+                self.k = min(self.k + 1, 12)
+            return
+        self._bit(0)
+        for i in range(self.EXP[self.k] - 1, -1, -1):
+            self._bit((self.run >> i) & 1)
+        self.run = 0
+        self.k = max(self.k - 1, 0)
+
+    def flush(self):
+        if self.run:
+            self._bit(1)
+        n = 8 if not self.out or self.out[-1] != 0xff else 7
+        if self.rem != n:
+            self.out.append((self.tmp << self.rem) & 0xff)
+        if self.out and self.out[-1] == 0xff:
+            self.out.append(0)  # no byte over 0x8F after a 0xFF
+        return bytes(self.out)
+
+
+class _FwdWriter:
+    """LSB first, 7 bits after a 0xFF byte (MagSgn, SigProp)."""
+
+    def __init__(self):
+        self.out, self.tmp, self.used, self.cap = bytearray(), 0, 0, 8
+
+    def bits(self, v, n):
+        for i in range(n):
+            self.tmp |= ((v >> i) & 1) << self.used
+            self.used += 1
+            if self.used == self.cap:
+                self.out.append(self.tmp)
+                self.cap = 7 if self.tmp == 0xff else 8
+                self.tmp, self.used = 0, 0
+
+    def flush(self, pad):
+        """Pads the last byte with `pad` bits; MagSgn (pad 1) drops a
+        trailing 0xFF, which the decoder's padding restores."""
+        if self.used:
+            if pad:
+                self.tmp |= ((1 << (self.cap - self.used)) - 1) << self.used
+            self.out.append(self.tmp)
+        if pad:
+            while self.out and self.out[-1] == 0xff:
+                self.out.pop()
+        return bytes(self.out)
+
+
+class _RevWriter:
+    """LSB first into bytes that are read backwards (the VLC, MagRef):
+    after a byte over 0x8F the next may take an 8th bit (its MSB) only
+    where its low 7 bits are not all set.  The VLC starts in the high
+    nibble of the byte whose low nibble holds Scup."""
+
+    def __init__(self, vlc):
+        self.out = bytearray()
+        self.tmp, self.used, self.gt = (0xf, 4, True) if vlc else (0, 0, True)
+
+    def bits(self, v, n):
+        for i in range(n):
+            self.tmp |= ((v >> i) & 1) << self.used
+            self.used += 1
+            if self.used == 8 - self.gt:
+                if self.gt and self.tmp != 0x7f:
+                    self.gt = False
+                    continue
+                self.out.append(self.tmp)
+                self.gt = self.tmp > 0x8f
+                self.tmp, self.used = 0, 0
+
+    def flush(self):
+        if self.used:
+            self.out.append(self.tmp)
+        return bytes(self.out)  # in reading order (the last byte first)
+
+
+def _uvlc_parts(u):
+    """(prefix bits, prefix length, suffix bits, suffix length) of u >= 1."""
+    if u == 1:
+        return 1, 1, 0, 0
+    if u == 2:
+        return 2, 2, 0, 0
+    if u <= 4:
+        return 4, 3, u - 3, 1
+    if u <= 36:
+        return 0, 3, u - 5, 5
+    raise ValueError("u %d past the UVLC's 36" % u)
+
+
+def _bitlen(v):
+    return int(v).bit_length()
+
+
+def encode_ht_cblk(coef, passes=1, vsc=False):
+    """The HT codeword segments [(bytes, passes)] of an integer code-block
+    `coef` (h, w) and its number of bit-planes p: with one pass the
+    cleanup codes every bit (p = 1); with 2 or 3 it codes the bits from
+    plane 1 up (p = 2), SigProp the plane-0 bit of insignificant samples
+    next to significant ones and, with 3, MagRef the plane-0 bit of the
+    cleanup's significant samples (what neither reaches is lost)."""
+    if not _VLC_ENC:
+        _VLC_ENC.extend(_vlc_encoders())
+    h, w = coef.shape
+    plane = 0 if passes == 1 else 1
+    mag = [[abs(int(v)) for v in row] for row in coef]
+    neg = [[int(v) < 0 for v in row] for row in coef]
+    mu = [[m >> plane for m in row] for row in mag]
+    mel, vlc, ms = _MelWriter(), _RevWriter(True), _FwdWriter()
+    line = [0] * (w // 2 + 4)
+
+    def quad(xs, y):
+        """rho, [(E, v)] of the quad at (xs, y)."""
+        rho, out = 0, []
+        for i in range(4):
+            xx, yy = xs + i // 2, y + i % 2
+            if xx < w and yy < h and mu[yy][xx]:
+                rho |= 1 << i
+                v = 2 * (mu[yy][xx] - 1) + int(neg[yy][xx])
+                out.append((_bitlen(2 * (mu[yy][xx] - 1) + 1), v))
+            else:
+                out.append((0, 0))
+        return rho, out
+
+    for y in range(0, h, 2):
+        initial = y == 0
+        enc = _VLC_ENC[0 if initial else 1]
+        ls0, c_q = line[0], 0
+        line[0] = 0
+        for x in range(0, w, 4):
+            j = x // 2
+            qs = [quad(x, y)] + ([quad(x + 2, y)] if x + 2 < w else [])
+            infos = []
+            for q, (rho, sm) in enumerate(qs):
+                if not initial:
+                    if q == 0:
+                        c_q |= (ls0 >> 7) | ((line[j + 1] >> 5) & 4)
+                    else:
+                        c_q |= (line[j + 1] >> 7) | ((line[j + 2] >> 5) & 4)
+                kappa = 1
+                if not initial and bin(rho).count("1") > 1:
+                    e = max(ls0 & 0x7f, line[j + 1] & 0x7f) if q == 0 else \
+                        max(line[j + 1] & 0x7f, line[j + 2] & 0x7f)
+                    kappa = max(1, e - 1)
+                emax = max(e for e, _ in sm)
+                U = max(kappa, emax)
+                u = U - kappa
+                uoff = int(u > 0)
+                best = None
+                if c_q == 0:
+                    mel.event(int(rho != 0))
+                if rho or c_q:
+                    for (r, uo, ek, e1), cw in enc[c_q].items():
+                        if r != rho or uo != uoff:
+                            continue
+                        if any((ek >> i) & 1 and (e1 >> i) & 1 != int(
+                                sm[i][0] == U) for i in range(4)):
+                            continue
+                        if best is None or cw[1] < best[1][1]:
+                            best = (ek, cw)
+                    assert best is not None, (c_q, rho, uoff)
+                    vlc.bits(*best[1])
+                ek = best[0] if best else 0
+                infos.append((rho, sm, U, u, ek))
+                if initial:
+                    c_q = (rho & 1) | ((rho >> 1) & 7)
+                else:
+                    c_q = ((rho >> 2) & 1) << 1 | ((rho >> 3) & 1) << 1
+            us = [i[3] for i in infos] + [0]
+            mode = int(us[0] > 0) | int(us[1] > 0) << 1
+            if mode in (1, 2):
+                pb, pn, sb, sn = _uvlc_parts(us[mode - 1])
+                vlc.bits(pb, pn)
+                vlc.bits(sb, sn)
+            elif mode == 3:
+                if initial and us[0] > 2 and us[1] > 2:
+                    mel.event(1)
+                    p0, p1 = _uvlc_parts(us[0] - 2), _uvlc_parts(us[1] - 2)
+                    vlc.bits(p0[0], p0[1])
+                    vlc.bits(p1[0], p1[1])
+                    vlc.bits(p0[2], p0[3])
+                    vlc.bits(p1[2], p1[3])
+                elif initial:
+                    mel.event(0)
+                    p0 = _uvlc_parts(us[0])
+                    vlc.bits(p0[0], p0[1])
+                    if us[0] > 2:
+                        vlc.bits(us[1] - 1, 1)
+                        vlc.bits(p0[2], p0[3])
+                    else:
+                        p1 = _uvlc_parts(us[1])
+                        vlc.bits(p1[0], p1[1])
+                        vlc.bits(p0[2], p0[3])
+                        vlc.bits(p1[2], p1[3])
+                else:
+                    p0, p1 = _uvlc_parts(us[0]), _uvlc_parts(us[1])
+                    vlc.bits(p0[0], p0[1])
+                    vlc.bits(p1[0], p1[1])
+                    vlc.bits(p0[2], p0[3])
+                    vlc.bits(p1[2], p1[3])
+            if not initial:
+                ls0 = line[j + 2]
+                line[j + 1] = line[j + 2] = 0
+            for q, (rho, sm, U, u, ek) in enumerate(infos):
+                for i in range(4):
+                    if not (rho >> i) & 1:
+                        continue
+                    e, v = sm[i]
+                    ms.bits(v, U - ((ek >> i) & 1))
+                    if i == 1:
+                        line[j + q] = 0x80 | max(line[j + q] & 0x7f, e)
+                    elif i == 3:
+                        line[j + q + 1] = 0x80 | e
+    mel_b, vlc_b = mel.flush(), vlc.flush()
+    scup = len(mel_b) + len(vlc_b) + 1
+    if scup > 4079:
+        raise ValueError("Scup %d past 4079" % scup)
+    tail = bytearray(vlc_b[::-1]) + bytes([scup >> 4])
+    tail[-2] = (tail[-2] & 0xf0) | (scup & 0xf)
+    segs = [(ms.flush(True) + mel_b + bytes(tail), 1)]
+    if passes > 1:
+        segs.append((_ht_refine(mag, neg, mu, passes, vsc), passes - 1))
+    return segs, plane + 1
+
+
+def _ht_refine(mag, neg, mu, passes, vsc):
+    """SigProp (and MagRef with 3 passes) of plane 0: SigProp forwards
+    from the segment's start, MagRef backwards from its end."""
+    h, w = len(mag), len(mag[0])
+    sig = [[m > 0 for m in row] for row in mu]
+    st = [row[:] for row in sig]
+    sp, mr = _FwdWriter(), _RevWriter(False)
+
+    def on(x, y):
+        return 0 <= x < w and 0 <= y < h and st[y][x]
+    for y0 in range(0, h, 4):
+        y1 = min(y0 + 4, h)
+        for g in range(0, w, 4):
+            fresh = []
+            for x in range(g, min(g + 4, w)):
+                for y in range(y0, y1):
+                    if st[y][x]:
+                        continue
+                    south = not (vsc and y == y0 + 3)
+                    near = [(x + dx, y + dy) for dy in (-1, 0, 1)
+                            for dx in (-1, 0, 1) if (dx or dy)
+                            and (dy < 1 or south)]
+                    if not any(on(*q) for q in near):
+                        continue
+                    b = mag[y][x] & 1
+                    sp.bits(b, 1)
+                    if b:
+                        st[y][x] = True
+                        fresh.append((x, y))
+            for x, y in fresh:
+                sp.bits(int(neg[y][x]), 1)
+        if passes > 2:
+            for x in range(w):
+                for y in range(y0, y1):
+                    if sig[y][x]:
+                        mr.bits(mag[y][x] & 1, 1)
+    return sp.flush(False) + mr.flush()[::-1]

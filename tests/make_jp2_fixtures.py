@@ -2,7 +2,7 @@
 held to, with cv2, Pillow's OpenJPEG and `j2k_craft` (it needs cv2 and
 Pillow; it is not a test):
 
-    python tests/make_jp2_fixtures.py     # ~40 s
+    python tests/make_jp2_fixtures.py     # ~75 s (with make_htj2k_fixtures)
 
 - `val/`: the 50 val images of the certification workload (the
   reference generator's 512x1024 scenes, seed 100, C=9: what
@@ -26,12 +26,14 @@ Pillow; it is not a test):
   tile-parts shuffled, TNsot 0, precisions 4/9/12 and mixed, sYCC 4:4:4
   and 4:2:0, a palette and one of 16-bit entries, cdef orders and
   alpha, CMYK, an unknown colour space, an ICC profile, 9/7 impulses,
-  20 decomposition levels, HTJ2K and a Part 2 marker);
+  20 decomposition levels, an HT code-block style on a flat image, an
+  MCT marker and Rsiz bit 15);
+- then `make_htj2k_fixtures.py`'s HT and Part 2 files (`ht/` and more of
+  `matrix/`);
 - `cv2_digests.json`: per file (path under `fixtures/jp2/`), the shape
   and the SHA-256 of `cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`
-  or `"cv2": null` where cv2 returns None, `"not_yet": true` where the
-  port does not read the file yet (cv2 does), and for the lossless
-  files the PNG they came from (`png`) and that PNG's pixel SHA-256.
+  or `"cv2": null` where cv2 returns None, and for the lossless files
+  the PNG they came from (`png`).
 
 `tests/test_torch_port_jp2.py` checks the digests against cv2 and the
 port's reader against the digests; `chip_smoke.py`'s "jp2" phase checks
@@ -57,12 +59,11 @@ BENCH = os.path.join(HERE, "fixtures", "certification512", "bench_img.png")
 sys.path.insert(0, HERE)
 
 import j2k_craft as jc  # noqa: E402
+import make_htj2k_fixtures  # noqa: E402
 
 VAL_X1000 = 100
 LOSSLESS_X1000 = 1000
 LOSSLESS = ("val_00000", "val_00001")
-#: matrix files the port does not read yet (cv2 does)
-NOT_YET = ("craft_htj2k.jp2", "craft_part2_mct.jp2", "craft_rsiz_part2.jp2")
 
 
 def rgb_digest(path):
@@ -268,9 +269,6 @@ def main():
             key = "%s/%s" % (sub, name)
             digests[key] = ({"cv2": None} if d is None else
                             {"shape": d[0], "sha256": d[1]})
-            if name in NOT_YET:
-                assert d is not None, key
-                digests[key]["not_yet"] = True
     for key, (png, sha) in pngs.items():
         assert digests[key]["sha256"] == sha, key
         digests[key]["png"] = png
@@ -279,6 +277,7 @@ def main():
         f.write("\n")
     print("%d files, %.1f MB" % (len(digests), sum(
         os.path.getsize(os.path.join(OUT, k)) for k in digests) / 1e6))
+    make_htj2k_fixtures.main()
 
 
 if __name__ == "__main__":

@@ -19,7 +19,10 @@ raises ValueError naming the file):
   SOP/EPH, up to 31 decomposition levels under position progressions;
 - cv2's and Pillow's encoders at their options (rates, layers, tiles,
   RGBA, LA, 16-bit grey, PLT, comments);
-- HTJ2K and Part 2 (cv2 reads them; the port says "not yet read");
+- the Part 2 markers (MCT, MCC, MCO, CBD, Rsiz bit 15; ATK and DFS as
+  OpenJPEG skips them), HTJ2K's CAP marker and style bit, 32 levels
+  under RPCL/PCRL/CPRL and a POC that gives a top resolution no packet
+  (HT code-blocks themselves: `test_torch_port_jp2_ht.py`);
 - truncated and corrupt files (seeded; the all-variant sweep is marked
   slow, a faster twin runs);
 - the JAX package's COCODataset item against the port's on a tiny COCO
@@ -70,16 +73,10 @@ def _both(data, tmp_path, name="c"):
     return (None if ref is None else ref[..., ::-1]), got
 
 
-def _as_cv2(data, tmp_path, where="", refused=None, not_yet_ok=False):
+def _as_cv2(data, tmp_path, where="", refused=None):
     """The port reads `data` as cv2 does (or refuses it as cv2 does);
-    `refused` pins which of the two cv2 does; `not_yet_ok` lets the port
-    say it does not read the file yet where cv2 reads it (a corrupt file
-    can turn into HTJ2K or Part 2 by one byte: Rsiz bit 15, a CAP or MCT
-    marker)."""
+    `refused` pins which of the two cv2 does."""
     ref, got = _both(data, tmp_path)
-    if not_yet_ok and ref is not None and isinstance(got, ValueError) and \
-            "not yet read by the port" in str(got):
-        return None
     if refused is not None:
         assert (ref is None) == refused, (where, "cv2 refused: %s"
                                           % (ref is None))
@@ -90,14 +87,6 @@ def _as_cv2(data, tmp_path, where="", refused=None, not_yet_ok=False):
     assert got.dtype == np.uint8 and got.shape == ref.shape, where
     np.testing.assert_array_equal(got, ref, err_msg=str(where))
     return got
-
-
-def _not_yet(data, tmp_path, where=""):
-    """cv2 reads `data`; the port says it does not read it yet."""
-    ref, got = _both(data, tmp_path)
-    assert ref is not None, (where, "cv2 refuses")
-    assert isinstance(got, ValueError) and "not yet read by the port" in str(
-        got), (where, got)
 
 
 def _digest(img):
@@ -152,12 +141,10 @@ def test_committed_digests_equal_cv2():
 def test_committed_file_reads_bit_equal(rel):
     d = DIGESTS[rel]
     path = os.path.join(FIX, rel)
-    if d.get("cv2", 1) is None or d.get("not_yet"):
+    if d.get("cv2", 1) is None:
         with pytest.raises(ValueError) as e:
             imgproc.imread_rgb(path)
         assert path in str(e.value)
-        assert ("not yet read by the port" in str(e.value)) == bool(
-            d.get("not_yet")), e.value
         return
     img = imgproc.imread_rgb(path)
     assert _digest(img) == [d["shape"], d["sha256"]]
@@ -165,16 +152,18 @@ def test_committed_file_reads_bit_equal(rel):
 
 def test_committed_lossless_files_are_their_pngs():
     """The lossless files' digests are those of the PNGs they came from
-    (recorded by make_jp2_fixtures.py; chip_smoke.py holds the port's
-    reads to the regenerated PNGs).  cv2's writer uses the 5/3 wavelet
-    and no component transform, lossy or not; Pillow's files carry
-    9/7 + ICT and 5/3 + RCT."""
+    (recorded by make_jp2_fixtures.py and make_htj2k_fixtures.py;
+    chip_smoke.py holds the port's reads to the regenerated PNGs).  cv2's
+    writer uses the 5/3 wavelet and no component transform, lossy or
+    not; Pillow's files carry 9/7 + ICT and 5/3 + RCT; the HTJ2K files
+    5/3 + RCT and 9/7 + ICT with HT code-blocks."""
     def cod(rel):
         with open(os.path.join(FIX, rel), "rb") as f:
             c = dict(jc.segments(jc.codestream(f.read()))[:-1])[0xff52]
         return c[4], c[9]  # MCT, wavelet (1: 5/3)
     lossless = {k: d for k, d in DIGESTS.items() if "png" in d}
-    assert sorted(lossless) == ["lossless/val_00000.jp2",
+    assert sorted(lossless) == ["ht/val_00000_53_rct_ht.jp2",
+                                "lossless/val_00000.jp2",
                                 "lossless/val_00001.jp2",
                                 "pillow/val_00000_53_rct.jp2"]
     for rel, d in lossless.items():
@@ -185,6 +174,12 @@ def test_committed_lossless_files_are_their_pngs():
     assert {cod(k) for k in val + ["lossless/val_00000.jp2"]} == {(0, 1)}
     assert cod("pillow/val_00000_53_rct.jp2") == (1, 1)
     assert cod("pillow/val_00000_97_ict.jp2") == (1, 0)
+    assert cod("ht/val_00000_53_rct_ht.jp2") == (1, 1)
+    assert cod("ht/val_00000_97_ict_ht.jp2") == (1, 0)
+    for rel in ("ht/val_00000_53_rct_ht.jp2", "ht/val_00000_97_ict_ht.jp2"):
+        with open(os.path.join(FIX, rel), "rb") as f:
+            c = dict(jc.segments(jc.codestream(f.read()))[:-1])[0xff52]
+        assert c[8] == jc.HT, rel
 
 
 # ------------------------------------------- what cv2 does (PERF.md table)
@@ -469,13 +464,43 @@ def test_poc(name, in_tile, tmp_path):
     np.testing.assert_array_equal(got, CROP)
 
 
+TOP_SKIPPED = {
+    "component 0": [(0, 0, 1, 2, 1, 0), (0, 1, 1, 3, 3, 0)],
+    "all components": [(0, 0, 1, 2, 3, 0)],
+    "two top resolutions": [(0, 0, 1, 1, 3, 0)],
+    "component 1 at resolution 0": [(0, 0, 1, 3, 1, 0), (0, 1, 1, 1, 2, 0),
+                                    (0, 2, 1, 3, 3, 0)],
+}
+#: components stopped at different resolutions: refused under the MCT
+UNEQUAL = ("component 0", "component 1 at resolution 0")
+
+
 def test_poc_leaving_a_top_resolution_is_not_yet_read(tmp_path):
     """OpenJPEG stops the inverse DWT at the highest resolution that had
-    a packet; a POC that gives a component's top resolution none is
-    read by cv2 and not yet by the port."""
-    _not_yet(jc.jp2(jc.encode(COMPS, levels=2, pocs=[(0, 0, 1, 2, 1, 0),
-                                                     (0, 1, 1, 3, 3, 0)])),
-             tmp_path)
+    a packet (in any tile so far): that resolution's samples, shifted
+    and clamped, fill the top left of the tile (a lone tile's whole
+    buffer, else the resolution's place on the reduced grid) and the
+    rest stays 0; under the MCT, components stopped at different
+    resolutions are refused.  The port reads these files as cv2 does."""
+    for name, pocs in TOP_SKIPPED.items():
+        for mct in (False, True):
+            for kw in ({}, dict(tile=(16, 16)),
+                       dict(tile=(16, 8), poc_in_tile=True)):
+                data = jc.jp2(jc.encode(COMPS, levels=2, pocs=pocs, mct=mct,
+                                        **kw))
+                got = _as_cv2(data, tmp_path, (name, mct, kw),
+                              refused=mct and name in UNEQUAL)
+                if got is not None:
+                    assert not np.array_equal(got, CROP), (name, mct, kw)
+    rng = np.random.default_rng(6)
+
+    def bands(k, r, b, shape):
+        return rng.integers(-40, 41, shape)
+    for name, pocs in TOP_SKIPPED.items():
+        _as_cv2(jc.jp2(jc.encode([np.zeros((24, 37), np.int64)] * 3,
+                                 levels=2, reversible=False, mct=True,
+                                 bands=bands, pocs=pocs)), tmp_path,
+                ("9/7", name), refused=name in UNEQUAL)
 
 
 PACKAGING = {
@@ -527,12 +552,20 @@ def test_deep_decompositions(prg, levels, tmp_path):
 
 
 def test_32_levels_by_position_not_yet_read(tmp_path):
-    """32 levels under a position-driven order are not yet read; cv2
-    reads them, and the port reads them under LRCP."""
+    """32 levels under a position-driven order: OpenJPEG shifts the
+    32-bit dx and dy by the level number, which C leaves undefined at
+    32; cv2's x86-64 build shifts by 0 there, and the port does so on
+    purpose.  Read as cv2 reads them, with tiles and precincts too, and
+    under LRCP."""
     small = [c[:12, :17] for c in COMPS]
-    for prg in ("RPCL", "PCRL", "CPRL"):
-        _not_yet(jc.encode(small, levels=32, progression=prg), tmp_path, prg)
-    _as_cv2(jc.encode(small, levels=32), tmp_path, "LRCP", refused=False)
+    for prg in ("RPCL", "PCRL", "CPRL", "LRCP"):
+        _as_cv2(jc.encode(small, levels=32, progression=prg), tmp_path, prg,
+                refused=False)
+        _as_cv2(jc.encode(COMPS, levels=32, progression=prg, tile=(16, 8)),
+                tmp_path, (prg, "tiles"), refused=False)
+        _as_cv2(jc.encode(COMPS, levels=32, progression=prg, tile=(16, 16),
+                          precincts=[(1, 1)] * 33), tmp_path,
+                (prg, "tiles, precincts"), refused=False)
 
 
 # ------------------------------------------------------- encoders' options
@@ -585,29 +618,140 @@ def test_small_and_odd_sizes(shape, irreversible, tmp_path):
             tmp_path, shape, refused=False)
 
 
-# ------------------------------------------------------------ not yet read
+# ---------------------------------------------- Part 2, HTJ2K's markers
 
-def test_htj2k_and_part2_not_yet_read(tmp_path):
-    """HTJ2K (code-block style 0x40, the CAP marker) and the Part 2
-    markers and Rsiz bit: cv2 reads each of these files."""
-    empty = jc.encode([np.full((12, 17), 128)] * 3, levels=1)
+def _mct(z, imct, ymct, values, pack=">H"):
+    """An MCT marker: Zmct, Imct, Ymct and the record's elements."""
+    return 0xff74, struct.pack(">HHH", z, imct, ymct) + b"".join(
+        struct.pack(pack, v) for v in values)
+
+
+def _mcc(index, nc, deco, offset, shuffle=False, z=0, y=0, q=1, tail=b""):
+    """An MCC marker of one array-based collection of nc components."""
+    comps = bytes(range(nc))[::-1] if shuffle else bytes(range(nc))
+    body = bytes([1]) + struct.pack(">H", nc) + comps
+    body += struct.pack(">H", nc) + bytes(range(nc))
+    body += ((1 << 16) | (offset << 8) | deco).to_bytes(3, "big")
+    return 0xff75, struct.pack(">HBHH", z, index, y, q) + body + tail
+
+
+def _imct(element, index, array=1):
+    return (element << 10) | (array << 8) | index
+
+
+def _mco(*stages):
+    return 0xff77, bytes([len(stages)]) + bytes(stages)
+
+
+_OFFSETS = _mct(0, _imct(0, 1), 0, [100, 40, 200])
+#: name: (main header markers, cv2 refuses, the image differs from the
+#: file without them)
+PART2 = {
+    "MCT Zmct 1": ([(0xff74, b"\0\1\0\0\0\0")], False, False),
+    "MCT Ymct 1": ([_mct(0, _imct(0, 1), 1, [1, 2, 3])], False, False),
+    "MCT short": ([(0xff74, b"\0\0\0\1\0\0")], True, False),
+    "MCC Zmcc 1": ([(0xff75, b"\0\1\0")], False, False),
+    "MCC short": ([(0xff75, b"\0\0\1\0\0\0")], True, False),
+    "MCO alone": ([(0xff77, b"\0")], False, True),
+    "MCO 2 stages": ([(0xff77, b"\2\1\2")], False, False),
+    "MCO bad size": ([(0xff77, b"\1\1\2")], True, False),
+    "offset int16": ([_OFFSETS, _mcc(5, 3, 0, 1), _mco(5)], False, True),
+    "offset int32": ([_mct(0, _imct(1, 1), 0, [10, 200, 0xfffffffd], ">I"),
+                      _mcc(5, 3, 0, 1), _mco(5)], False, True),
+    "offset float32": ([_mct(0, _imct(2, 1), 0, [10.7, -20.2, 3.9], ">f"),
+                        _mcc(5, 3, 0, 1), _mco(5)], False, True),
+    "offset float64": ([_mct(0, _imct(3, 1), 0, [100.7, 64.2, -3.9], ">d"),
+                        _mcc(5, 3, 0, 1), _mco(5)], False, True),
+    "offset and matrix": ([_mct(0, _imct(2, 2, 0), 0, [1, 0, 0, 0, 1, 0, 0,
+                                                       0, 1], ">f"),
+                           _OFFSETS, _mcc(5, 3, 2, 1), _mco(5)], False, True),
+    "matrix of a wrong size": ([_mct(0, _imct(2, 2, 0), 0, [1, 0, 0], ">f"),
+                                _mcc(5, 3, 2, 0), _mco(5)], True, False),
+    "offsets of a wrong size": ([_mct(0, _imct(0, 1), 0, [10, 20]),
+                                 _mcc(5, 3, 0, 1), _mco(5)], True, False),
+    "MCC naming no MCT": ([_mcc(5, 3, 0, 7), _mco(5)], True, False),
+    "MCO naming no MCC": ([_OFFSETS, _mcc(5, 3, 0, 1), _mco(6)], False,
+                          True),
+    # opj_j2k_add_mct never looks past the first MCC record
+    "MCO naming the second MCC": ([_OFFSETS, _mcc(4, 3, 0, 0),
+                                   _mcc(5, 3, 0, 1), _mco(5)], False, True),
+    "MCO naming the first MCC": ([_OFFSETS, _mcc(5, 3, 0, 1),
+                                  _mcc(4, 3, 0, 0), _mco(5)], False, True),
+    "MCC of 2 components": ([_mct(0, _imct(0, 1), 0, [10, 200]),
+                             _mcc(5, 2, 0, 1), _mco(5)], False, True),
+    "MCC shuffled": ([_OFFSETS, _mcc(5, 3, 0, 1, shuffle=True), _mco(5)],
+                     False, True),
+    "MCC no collection": ([(0xff75, struct.pack(">HBHH", 0, 5, 0, 0)),
+                           _mco(5)], False, True),
+    "MCC 2 collections": ([_mcc(5, 3, 0, 1, q=2), _mco(5)], False, True),
+    "MCC trailing byte": ([_OFFSETS, _mcc(5, 3, 0, 1, tail=b"\0"), _mco(5)],
+                          True, False),
+    "MCT record replaced": ([_OFFSETS, _mcc(5, 3, 0, 1),
+                             _mct(0, _imct(0, 1), 0, [50, 60, 70]), _mco(5)],
+                            False, True),
+    "MCO before MCC": ([_mco(5), _OFFSETS, _mcc(5, 3, 0, 1)], False, True),
+    "CBD 8 bits": ([(0xff78, b"\0\3\7\7\7")], False, False),
+    "CBD 12 10 8 bits": ([(0xff78, b"\0\3\x0b\x09\x07")], False, True),
+    "CBD 4 bits": ([(0xff78, b"\0\3\3\3\3")], True, False),
+    "CBD signed": ([(0xff78, b"\0\3\x87\7\7")], True, False),
+    "CBD 32 bits": ([(0xff78, b"\0\3\x1f\7\7")], True, False),
+    "CBD count": ([(0xff78, b"\0\2\7\7\7")], True, False),
+    "CBD size": ([(0xff78, b"\0\3\7\7")], True, False),
+    "CAP": ([(0xff50, struct.pack(">IH", 0x00020000, 0))], False, False),
+    "CAP empty": ([(0xff50, b"")], False, False),
+    "ATK": ([(0xff79, b"\0\1\2\3")], False, False),
+    "DFS": ([(0xff72, b"\0\1\1\2")], False, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PART2))
+def test_htj2k_and_part2_not_yet_read(name, tmp_path):
+    """The Part 2 markers as OpenJPEG 2.5.3 reads them (an MCC
+    collection's offset array becomes the DC level shifts, MCO alone
+    zeroes them, CBD sets the precisions), HTJ2K's CAP marker (read as
+    nothing), ATK and DFS (skipped as unknown): each file read as cv2
+    reads it, or refused where cv2 refuses it."""
+    markers, refused, differs = PART2[name]
     base = jc.encode(COMPS, levels=1)
+    got = _as_cv2(jc.jp2(jc.with_main_markers(base, add=markers)), tmp_path,
+                  name, refused=refused)
+    if got is not None:
+        assert (not np.array_equal(got, CROP)) == differs, name
+
+
+def test_part2_in_tile_headers_and_rsiz(tmp_path):
+    """MCT/MCC/MCO in a tile header act on that tile; Rsiz bit 15 (and
+    the HT bit 0x4000) change nothing; COD's MCT byte 2 (the array
+    transform) and a COD transform of 2 (an ATK wavelet) are refused;
+    an HT code-block style on a flat image (no code-block coded)."""
+    for markers in ([(0xff77, b"\0")], [_OFFSETS, _mcc(5, 3, 0, 1),
+                                        _mco(5)]):
+        got = _as_cv2(jc.jp2(jc.encode(COMPS, levels=1, tile=(16, 16),
+                                       tile_markers=markers)), tmp_path,
+                      markers, refused=False)
+        assert not np.array_equal(got, CROP)
+    base = jc.encode(COMPS, levels=1)
+    for rsiz in (0x8000, 0xc000, 0x4000):
+        got = _as_cv2(jc.jp2(jc.set_rsiz(base, rsiz)), tmp_path, rsiz,
+                      refused=False)
+        np.testing.assert_array_equal(got, CROP)
+
+    def cod(i, v):
+        def ed(p):
+            p = bytearray(p)
+            p[i] = v
+            return bytes(p)
+        return {0xff52: ed}
+    rct = jc.encode(COMPS, levels=1, mct=True)
+    for edit in (cod(4, 2), cod(4, 3), cod(9, 2)):
+        _as_cv2(jc.jp2(jc.with_main_markers(rct, edit=edit)), tmp_path, edit,
+                refused=True)
+    empty = jc.encode([np.full((12, 17), 128)] * 3, levels=1)
     cap = (0xff50, struct.pack(">IH", 0x00020000, 0))
-    cases = {
-        "HT style": jc.set_cblksty(empty, 0x40),
-        "HT + CAP": jc.with_main_markers(jc.set_rsiz(
-            jc.set_cblksty(empty, 0x40), 0x4000), add=[cap]),
-        "CAP": jc.with_main_markers(base, add=[cap]),
-        "MCT": jc.with_main_markers(base, add=[(0xff74, b"\0\1\0\0\0\0")]),
-        "MCC": jc.with_main_markers(base, add=[(0xff75, b"\0\1\0")]),
-        "MCO": jc.with_main_markers(base, add=[(0xff77, b"\0")]),
-        "CBD": jc.with_main_markers(base, add=[(0xff78, b"\0\3\7\7\7")]),
-        "Rsiz 0x8000": jc.set_rsiz(base, 0x8000),
-    }
-    for name, cs in cases.items():
-        _not_yet(jc.jp2(cs), tmp_path, name)
-    _as_cv2(jc.jp2(jc.set_rsiz(base, 0x4000)), tmp_path, "Rsiz 0x4000",
-            refused=False)
+    got = _as_cv2(jc.jp2(jc.with_main_markers(jc.set_rsiz(
+        jc.set_cblksty(empty, 0x40), 0x4000), add=[cap])), tmp_path, "flat",
+        refused=False)
+    assert (got == 128).all()
 
 
 # ------------------------------------------------------------ refusals
@@ -655,6 +799,9 @@ def _base_files():
                                         tile=(16, 8), tileparts=2)),
         "ppt": jc.jp2(jc.encode(comps, levels=2, packed="ppt", layers=2,
                                 tile=(16, 8))),
+        "ht": jc.jp2(jc.encode(comps, levels=2, cblksty=jc.HT, cblk=(3, 3))),
+        "ht 3 passes": jc.jp2(jc.encode(comps, levels=2, mct=True,
+                                        cblksty=jc.HT, ht_passes=3)),
         "palette cdef": jc.rebox(_palette_file(
             np.random.default_rng(2), np.random.default_rng(3).integers(
                 0, 256, (16, 3)), [8, 8, 8],
@@ -663,14 +810,14 @@ def _base_files():
     }
 
 
-@pytest.mark.parametrize("kind", ["j2k tiles layers", "lossless", "lossy",
-                                  "palette cdef", "ppm sop eph", "ppt",
-                                  "styles", "termall"])
+@pytest.mark.parametrize("kind", ["ht", "ht 3 passes", "j2k tiles layers",
+                                  "lossless", "lossy", "palette cdef",
+                                  "ppm sop eph", "ppt", "styles", "termall"])
 def test_corrupt_files_as_cv2(kind, tmp_path):
     rng = np.random.default_rng(sum(map(ord, kind)))
     data = _base_files()[kind]
     for name, bad in _corruptions(rng, data, 10, 16, 4):
-        _as_cv2(bad, tmp_path, (kind, name), not_yet_ok=True)
+        _as_cv2(bad, tmp_path, (kind, name))
 
 
 @pytest.mark.slow
@@ -679,7 +826,7 @@ def test_corrupt_files_as_cv2_all(tmp_path):
     for rep in range(3):
         for kind, data in _base_files().items():
             for name, bad in _corruptions(rng, data, 40, 120, 20):
-                _as_cv2(bad, tmp_path, (rep, kind, name), not_yet_ok=True)
+                _as_cv2(bad, tmp_path, (rep, kind, name))
 
 
 def test_box_walk_as_cv2(tmp_path):
