@@ -1551,21 +1551,23 @@ def data_phase(smi, sw, run):
 def start_jpeg_build():
     """The g++ builds of the JPEG decoder (`data/native/jpeg.cc`), then
     of the raster decompressors (`data/native/codecs.cc`), the WebP
-    decoders (`data/native/webp.cc`) and the JPEG 2000 decoder
-    (`data/native/jp2.cc`) in a thread, started once the kernels' nvcc
-    build is done, so that they run beside the card phases that follow;
-    returns (thread, result dict), which the jpeg phase joins (the dict
-    holds build_s, codecs_build_s, webp_build_s and jp2_build_s, None
-    for a library already built, or the error)."""
+    decoders (`data/native/webp.cc`), the JPEG 2000 decoder
+    (`data/native/jp2.cc`) and the AV1 decoder (`data/native/avif.cc`)
+    in a thread, started once the kernels' nvcc build is done, so that
+    they run beside the card phases that follow; returns (thread, result
+    dict), which the jpeg phase joins (the dict holds build_s,
+    codecs_build_s, webp_build_s, jp2_build_s and avif_build_s, None for
+    a library already built, or the error)."""
     import threading
 
-    from mergenet_tpu_torch.data import codecs, jp2, jpeg, webp
+    from mergenet_tpu_torch.data import avif, codecs, jp2, jpeg, webp
     result = {}
 
     def run():
         try:
             for key, mod in (("build_s", jpeg), ("codecs_build_s", codecs),
-                             ("webp_build_s", webp), ("jp2_build_s", jp2)):
+                             ("webp_build_s", webp), ("jp2_build_s", jp2),
+                             ("avif_build_s", avif)):
                 built = not os.path.exists(mod.library_path())
                 t0 = time.perf_counter()
                 mod.build()
@@ -2580,6 +2582,100 @@ def jp2_phase(drive, paths, smi, sw, data_dir, built):
             "launches": launches, "ms_per_512x1024": ms, "reps": JPEG_REPS,
             "phase_s": sum(sw.totals[k] for k in (
                 "jp2 fixtures", "jp2 (c) hier", "jp2 timing"))}
+
+
+def avif_phase(smi, sw, data_dir, built):
+    """AVIF reading (`data/avif.py` over `data/native/avif.cc`, built by
+    `start_jpeg_build`; host only, no kernel): every committed file of
+    tests/fixtures/avif read by `imgproc.imread_rgb` and held to cv2's
+    SHA-256 (`cv2_digests.json`; a file cv2 refuses must raise
+    ValueError, a file with a tool the port does not read yet must raise
+    "not yet read" naming it); val 0 and val 1, written lossless by cv2
+    (identity matrix, 4:4:4), held equal to the regenerated PNGs they
+    came from; the host's ms per 512x1024 image for cv2's lossless file,
+    Pillow's lossless 4:2:0, Pillow's 4:2:0 with the in-loop filters off
+    at qualities 70 and 30, and cv2's 10-bit file with its later tools
+    switched off (JPEG_REPS decodes each, in turns)."""
+    import hashlib
+
+    import numpy as np
+
+    from mergenet_tpu_torch import io
+    from mergenet_tpu_torch.data import avif, imgproc
+
+    fixa = os.path.join(HERE, "tests", "fixtures", "avif")
+    with open(os.path.join(fixa, "cv2_digests.json")) as f:
+        digests = json.load(f)
+    build_s = built.get("avif_build_s")
+    wrong, refused, not_yet, lossless_equal = [], 0, 0, {}
+    with sw.span("avif fixtures"):
+        for rel, d in sorted(digests.items()):
+            path = os.path.join(fixa, rel)
+            if d["sha256"] is None or "not_yet" in d:
+                try:
+                    imgproc.imread_rgb(path)
+                    wrong.append(rel)
+                except ValueError as e:
+                    later = avif.NOT_YET in str(e)
+                    if "not_yet" in d and later and d["not_yet"] in str(e):
+                        not_yet += 1
+                    elif "not_yet" not in d and not later:
+                        refused += 1
+                    else:
+                        wrong.append(rel)
+                continue
+            img = imgproc.imread_rgb(path)
+            if [list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()] \
+                    != [d["shape"], d["sha256"]]:
+                wrong.append(rel)
+            if "png" in d:
+                lossless_equal[rel] = bool(np.array_equal(img, io.read_png_rgb(
+                    os.path.join(data_dir, "val", d["png"]))))
+    print("  decoder %s (g++, after the nvcc build); %d committed files in "
+          "%.2f s (%d refused as cv2 refuses them, %d not yet read), %d "
+          "differ from cv2: %s; lossless files equal to the PNGs they came "
+          "from: %s" % (
+              "cached" if build_s is None else "built in %.2f s" % build_s,
+              len(digests), sw.totals["avif fixtures"], refused, not_yet,
+              len(wrong), wrong, lossless_equal), flush=True)
+    gates = [("every committed file as cv2's digest says", not wrong),
+             ("the lossless files equal to their PNGs",
+              len(lossless_equal) == 2 and all(lossless_equal.values()))]
+
+    # host ms per 512x1024 image, JPEG_REPS decodes each in turns
+    timed = {"cv2_lossless": "lossless/val_00000.avif",
+             "pillow_lossless_420": "val/pil_lossless_420.avif",
+             "pillow_q70_420": "val/pil_q70_nofilter.avif",
+             "pillow_q30_420": "val/pil_q30_nofilter.avif",
+             "cv2_10bit_q60": "val/cv2_10bit_q60_stripped.avif"}
+    spent = dict.fromkeys(timed, 0.0)
+    with sw.span("avif timing"):
+        for _ in range(JPEG_REPS):
+            for kind, rel in timed.items():
+                t0 = time.perf_counter()
+                imgproc.imread_rgb(os.path.join(fixa, rel))
+                spent[kind] += time.perf_counter() - t0
+    ms = {kind: spent[kind] / JPEG_REPS * 1e3 for kind in timed}
+    sizes = {kind: os.path.getsize(os.path.join(fixa, rel))
+             for kind, rel in timed.items()}
+    print("  ms per 512x1024 image, %d decodes each (host, %s): cv2 "
+          "lossless 4:4:4 (%d B) %.3f, Pillow lossless 4:2:0 (%d B) %.3f, "
+          "Pillow q70 4:2:0 (%d B) %.3f, Pillow q30 4:2:0 (%d B) %.3f, "
+          "cv2 10-bit q60 (%d B) %.3f" % (
+              JPEG_REPS, smi, sizes["cv2_lossless"], ms["cv2_lossless"],
+              sizes["pillow_lossless_420"], ms["pillow_lossless_420"],
+              sizes["pillow_q70_420"], ms["pillow_q70_420"],
+              sizes["pillow_q30_420"], ms["pillow_q30_420"],
+              sizes["cv2_10bit_q60"], ms["cv2_10bit_q60"]), flush=True)
+    failed = [g for g, ok in gates if not ok]
+    if failed:
+        raise AssertionError("avif gates failed: %s" % failed)
+    return {"build_s": build_s, "fixtures": len(digests), "differ": wrong,
+            "refused": refused, "not_yet": not_yet,
+            "lossless_equal_png": lossless_equal, "ms_per_512x1024": ms,
+            "bytes": sizes, "reps": JPEG_REPS,
+            "phase_s": sum(sw.totals[k] for k in ("avif fixtures",
+                                                  "avif timing"))}
 
 
 def tiff_phase(drive, paths, smi, sw, data_dir, jpeg_r):
@@ -4450,6 +4546,11 @@ def main():
           "the 50 val images")
     jp2_r = jp2_phase(drive, paths, smi, sw, data_dir, jpeg_build[1])
     print("jp2 " + json.dumps({"card": smi, **jp2_r}), flush=True)
+    phase("avif: the committed AVIFs against cv2's digests (the files "
+          "with a later tool refused as not yet read), the lossless val "
+          "files against their PNGs, the host's read times")
+    avif_r = avif_phase(smi, sw, data_dir, jpeg_build[1])
+    print("avif " + json.dumps({"card": smi, **avif_r}), flush=True)
     phase("tiff: the 50 q90 val JPEGs rewrapped as JPEG-in-TIFF (one strip; "
           "JPEGTables and an abbreviated strip) against the JPEGs' cv2 "
           "digests, (c) hier from them, the new TIFF kinds timed")

@@ -132,13 +132,23 @@ tiff_codecs,png,jpeg}.py` hold each row; PERF.md has the same table):
     origin not 0, CMYK, e-sYCC, sRGB with 1-2
     components, truncated, corrupt; HT passes
     over layers, 4+ HT passes, mixed HT
-  AVIF                                         read                ValueError
-                                                                   (not yet)"""
+  AVIF AV1 intra frames (lossless, or lossy    libavif over        equal
+    with the in-loop filters off), 8-12 bits,  libaom; libyuv's
+    any subsampling, every intra tool, tiles,  fixed point or
+    grids, alpha (dropped), avis (first        libavif's float
+    frame); Exif orientation                   path; grey as grey
+  AVIF with a loop filter, CDEF, restoration,  read                ValueError
+    superres, film grain, quantizer matrices;                      (not yet)
+    an ispe other than the frame's (rescaled)
+  AVIF past cv2's 500-byte sniff, missing      None                ValueError
+    ispe/av1C, bad pixi, unknown essential or
+    non-essential transforms, truncated,
+    corrupt"""
 
 import numpy as np
 
 from .. import io
-from . import bmp, gif, hdr, jp2, jpeg, pxm, sunras, tiff, webp
+from . import avif, bmp, gif, hdr, jp2, jpeg, pxm, sunras, tiff, webp
 
 INTER_NEAREST = 0
 INTER_LINEAR = 1
@@ -175,7 +185,7 @@ _DECODERS = (
     (jp2.is_jp2, jp2.decode_jp2),
     (lambda h: h[:2] == b"P7" and h[2:3].isspace(), pxm.decode_pam),
     (lambda h: h[:6] in gif.SIGNATURES, gif.decode_gif),
-    (_is_avif, "AVIF"),
+    (_is_avif, avif.decode_avif),
 )
 
 
@@ -209,13 +219,21 @@ def imread_rgb(path):
               animation; EXIF orientation applied
         JP2   jp2.decode_jp2: JP2 and raw J2K, Part 1 (5/3 and 9/7,
               RCT/ICT, every progression and packaging, code-block
-              styles, RGN); grey, sRGB, sYCC, palettes, cdef
+              styles, RGN), HTJ2K, Part 2 markers; grey, sRGB, sYCC,
+              palettes, cdef
+        AVIF  avif.decode_avif: AV1 intra frames up to the in-loop
+              filters (lossless, or lossy with the filters off), 8-12
+              bits, every subsampling and intra tool; grids, alpha
+              (dropped), the first frame of an avis; libavif's YUV->RGB;
+              Exif orientation applied
 
     Where cv2 returns None (each module lists those files), this raises
-    ValueError naming the file and the cause; AVIF, HTJ2K and JPEG 2000
-    Part 2, which cv2 reads, raise a ValueError saying the port does not
-    read them yet; so do the PAM files with alpha that
-    cv2 reads differently on every call."""
+    ValueError naming the file and the cause; an AVIF whose frame uses a
+    loop filter, CDEF, loop restoration, superres, film grain or
+    quantizer matrices (or whose ispe libavif rescales to), which cv2
+    reads, raises a ValueError naming the tools as not yet read by the
+    port; so do the PAM files with alpha that cv2 reads differently on
+    every call."""
     with open(path, "rb") as f:
         data = f.read()
     for matches, reader in _DECODERS:

@@ -552,18 +552,22 @@ def test_gif_as_cv2(size, tmp_path):
 # ------------------------------------------------------- dispatch, not yet
 
 def test_not_yet_read_containers_raise(tmp_path):
-    """AVIF, which cv2 reads, raises a ValueError naming the container
-    as not yet read by the port (WebP and JPEG 2000, which raised so
-    before the port read them, now read as cv2 reads them); bytes no
-    decoder claims raise as cv2 returns None."""
+    """An AVIF file whose frame uses a tool decoded after reconstruction
+    (cv2's own quality-90 file: quantizer matrices, the deblocking
+    filter), which cv2 reads, raises a ValueError naming the tools as not
+    yet read by the port; cv2's lossless AVIF (quality 100), WebP and
+    JPEG 2000, which raised so before the port read them, now read as
+    cv2 reads them; bytes no decoder claims raise as cv2 returns None."""
     img = np.random.default_rng(12).integers(0, 256, (64, 64, 3), np.uint8)
-    for ext in (".webp", ".jp2"):
-        ok, enc = cv2.imencode(ext, img)
+    for ext, prm in ((".webp", []), (".jp2", []),
+                     (".avif", [cv2.IMWRITE_AVIF_QUALITY, 100])):
+        ok, enc = cv2.imencode(ext, img, prm)
         assert ok
         ref, got = _both(enc.tobytes(), tmp_path, ext)
         np.testing.assert_array_equal(got, ref)
-    for ext, what in ((".avif", "AVIF"),):
-        ok, enc = cv2.imencode(ext, img)
+    for ext, what in ((".avif", "AVIF with quantizer matrices, the "
+                       "deblocking filter"),):
+        ok, enc = cv2.imencode(ext, img, [cv2.IMWRITE_AVIF_QUALITY, 90])
         assert ok, ext
         ref, got = _both(enc.tobytes(), tmp_path, ext)
         assert ref is not None and isinstance(got, ValueError)
